@@ -6,21 +6,31 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints its result; any failure raises and exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name; TF32
      off for matmuls and convolutions;
-  2. build: nvcc builds the block-walk kernel (csrc/block_trace.cu) from the
-     checkout's sources;
-  3. kernel vs twin on the full bench scene (data/bench, 249,698 triangles
-     in 2,593 clusters): the primary rays of one 32768-pixel chunk and
-     their level-1 shadow rays, closest and any-hit, timed;
+  2. build: nvcc builds every kernel from the checkout's sources, one
+     process per source, all at once (csrc/block_trace.cu, octet_trace.cu,
+     octet_bench.cu), with their ptxas lines;
+  3. kernels vs twins on the full bench scene (data/bench, 249,698
+     triangles in 2,593 clusters), on the primary rays of one 32768-pixel
+     chunk and their level-1 shadow rays, timed: the block walk gated (K1)
+     and ungated (K2), closest and any-hit; the octet round (K3) on round-0
+     and round-1 descriptors; a tie check of torch.argmin on the card;
   4. the main path: render() of the 1280x720 bench frame with the bench
      engine settings, counting kernel launches, drops and device rays;
   5. a 160x90 frame through the kernel against the JAX package's render of
      it (tests/data/jax_bench_160x90.npz, written on the CPU by
      tests/data/make_jax_bench_reference.py), and a 320x180 frame through
-     the kernel and through its twin, compared.
+     the kernel and through its twin, compared;
+  6. the octet path: the bench frame with pallas_algo="octet";
+  7. the large-pack path: the bench frame at 1 spp with the pack budget
+     forced to 0, so every block walk is the ungated K2;
+  8. 320x180 frames: octet against block, K2 against K1;
+  9. the octet kernel bench (K4): the port's capture of the middle chunk's
+     level-3 closest wavefront, then every variant, timed and against its
+     twin (and on probe rays that hit, where the wavefront rarely does).
 
 The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the phase-4
-sample count (default 2).
+{"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
+phases 4 and 6 (default 2).
 """
 import json
 import os
@@ -42,7 +52,13 @@ TPU_RAYS_PER_SAMPLE = 527835561 / 128
 # the JAX package's render of the bench scene at 160x90, 1 sample, on the
 # CPU: 8-bit image, object ids and device rays
 JAX_REFERENCE = os.path.join(ROOT, "tests", "data", "jax_bench_160x90.npz")
-TPU_KERNEL = "rustray_tpu/ops/block_trace.py:279"
+# the TPU kernels the port's kernels replace (file:line of the Pallas
+# kernel body)
+TPU_K1 = "rustray_tpu/ops/block_trace.py:279"
+TPU_K2 = "rustray_tpu/ops/block_trace.py:434"
+TPU_K3 = "rustray_tpu/ops/octet_trace.py:109"
+TPU_K4 = "tools/octet_kernel_bench.py:29"
+KERNEL_SOURCES = ("block_trace", "octet_trace", "octet_bench")
 
 
 def _check(cond, msg):
@@ -51,41 +67,12 @@ def _check(cond, msg):
 
 
 def _cuda_ms(fn, iters):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    from rustray_tpu_torch.tools.octet_kernel_bench import cuda_ms
+    return cuda_ms(fn, iters)
 
 
-def load_bench_scene(width, height):
-    """The bench scene of data/bench through the port's JSON→GLTF loaders.
-    The committed JSON names its GLB by an absolute path; the GLB is found
-    by its basename in data/bench/ and a rewritten copy of the JSON goes to
-    the port's build directory (nothing is written into data/)."""
-    from rustray_tpu_torch.build import BUILD_DIR
-    from rustray_tpu_torch.scene.scene import Scene
-    bench = os.path.join(ROOT, "data", "bench")
-    with open(os.path.join(bench, "sponza_class_g6_52x68.json")) as f:
-        spec = json.load(f)
-    for obj in spec["objects"]:
-        obj["path"] = os.path.join(bench, os.path.basename(obj["path"]))
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, "bench_scene.json")
-    with open(path, "w") as f:
-        json.dump(spec, f)
-    scene = Scene()
-    scene.load(path)
-    scene.cam.init(width, height)
-    scene.init()
-    scene.update()
-    return scene
+def _row():
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
 
 
 def level1_rays(sa, static, prep, boxes, cfg, engine):
@@ -131,55 +118,199 @@ def level1_rays(sa, static, prep, boxes, cfg, engine):
              sh_tmax.reshape(-1)))
 
 
-def compare_walks(sa, static, prep, boxes, ray_sets):
-    """Phase 3: the kernel and its twin on the same visit lists.  Returns
-    per-mode rows of the kernel table (without launches)."""
-    import torch
-    from rustray_tpu_torch.ops import block_trace as bt
-    from rustray_tpu_torch.ops.intersect import INF
+def sorted_sets(sa, boxes, ray_sets):
+    """Phase 3's ray sets as the walks see them: coherence-sorted, with
+    the scene-exit cap, per (name, mode)."""
     from rustray_tpu_torch.ops.traverse import coherence_sort, instance_mask
     w_lo, w_hi = boxes
-    pack = prep.pallas_pack
-    rows = {m: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for m in
-            ("closest", "any")}
+    out = []
     for name, (o, d, alive, t_max), for_shadow in zip(
             ("primary", "shadow"), ray_sets, (False, True)):
         inst_ok = instance_mask(sa, for_shadow, False)
         cl_ok = sa.cl_valid & inst_ok[sa.cl_inst.long()]
         _, o_s, d_s, alive_s, tmax_s = coherence_sort(o, d, alive, t_max,
                                                       w_lo, w_hi, cl_ok)
+        out.append((name, "any" if for_shadow else "closest", o_s, d_s,
+                    alive_s, tmax_s, cl_ok))
+    return out
+
+
+def compare_walks(prep, boxes, sets):
+    """Phase 3: the block walk and its twin on the same visit lists, gated
+    (K1) and ungated (K2), both modes.  Returns {(gated, mode): row} of the
+    kernel table (without launches)."""
+    import torch
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops.intersect import INF
+    w_lo, w_hi = boxes
+    pack = prep.pallas_pack
+    rows = {(g, m): _row() for g in (True, False) for m in ("closest", "any")}
+    for name, _, o_s, d_s, alive_s, tmax_s, cl_ok in sets:
         lists = bt.prepare_walk(o_s, d_s, alive_s, tmax_s, w_lo, w_hi, cl_ok,
                                 BLOCK)
-        n = o.shape[0]
-        for mode in ("closest", "any"):
-            t_k, i_k = bt.block_walk(*lists, pack, mode)
-            t_p, i_p = bt.block_walk(*lists, pack, mode, interpret=True)
+        n = o_s.shape[0]
+        for gated in (True, False):
+            tag = "K1" if gated else "K2"
+            for mode in ("closest", "any"):
+                t_k, i_k = bt.block_walk(*lists, pack, mode, gated=gated)
+                t_p, i_p = bt.block_walk(*lists, pack, mode, interpret=True,
+                                         gated=gated)
+                torch.cuda.synchronize()
+                t_k, i_k = t_k.reshape(-1)[:n], i_k.reshape(-1)[:n]
+                t_p, i_p = t_p.reshape(-1)[:n], i_p.reshape(-1)[:n]
+                f_k, f_p = t_k < INF, t_p < INF
+                agree = (f_k == f_p).float().mean().item()
+                _check(agree >= 0.999, f"{tag} {name}/{mode}: found masks "
+                       f"agree on only {agree:.5f} of rays")
+                both = f_k & f_p
+                err = (t_k - t_p).abs()[both].max().item() if both.any() \
+                    else 0.0
+                same_i = (i_k == i_p)[both].float().mean().item() \
+                    if both.any() else 1.0
+                _check(same_i >= 0.999, f"{tag} {name}/{mode}: winners "
+                       f"agree on only {same_i:.5f} of found rays")
+                if mode == "closest":
+                    # t of the selected triangle, recomputed from its
+                    # constants
+                    tk = _tri_t(prep, o_s, d_s, i_k)[both]
+                    tp = _tri_t(prep, o_s, d_s, i_p)[both]
+                    _check(torch.allclose(tk, tp, rtol=1e-4, atol=1e-5),
+                           f"{tag} {name}/closest: selected-triangle t "
+                           f"differs")
+                ms = _cuda_ms(lambda: bt.block_walk(*lists, pack, mode,
+                                                    gated=gated), 5)
+                plain = _cuda_ms(lambda: bt.block_walk(
+                    *lists, pack, mode, interpret=True, gated=gated), 1)
+                print(f"phase 3: {tag} {name:7s} {mode:7s} rays={n} "
+                      f"found={agree:.5f} agree, winners {same_i:.5f}, "
+                      f"hits={int(f_k.sum())}, max|dt|={err:.3g}, kernel "
+                      f"{ms:.3f} ms, twin {plain:.3f} ms")
+                row = rows[(gated, mode)]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["ms"] += ms
+                row["plain_ms"] += plain
+    return rows
+
+
+def check_argmin_ties():
+    """torch.argmin on the card must return the lowest index on ties, as
+    jnp.argmin does: the octet rounds' cluster order rests on it."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    e = torch.randint(0, 4, (4096, 2593), device="cuda",
+                      generator=g).float()
+    e[::7] = 3.0e38                         # rows with no cluster at all
+    lane = torch.arange(e.shape[1], device="cuda")
+    want = torch.where(e == e.amin(dim=1, keepdim=True), lane,
+                       e.shape[1]).amin(dim=1)
+    got = torch.argmin(e, dim=1)
+    _check(torch.equal(got, want), "torch.argmin on CUDA does not return "
+           "the lowest index on ties")
+    print("phase 3: torch.argmin returns the lowest index on ties "
+          f"(4096 x 2593, {int((e == e.amin(1, keepdim=True)).sum())} "
+          "minima)")
+
+
+def compare_rounds(prep, boxes, sets):
+    """Phase 3: the octet round and its twin on the round-0 and round-1
+    descriptors of each set's first 32768-ray slice.  Returns {slots:
+    row} of the kernel table (without launches)."""
+    import torch
+    from rustray_tpu_torch.ops import octet_trace as ot
+    from rustray_tpu_torch.ops.block_trace import DEAD_ORIGIN
+    from rustray_tpu_torch.ops.intersect import INF
+    w_lo, w_hi = boxes
+    pack = prep.pallas_pack
+    dummy = pack.shape[0] - 1
+    rows = {1: _row(), 4: _row()}
+    for name, mode, o_s, d_s, alive_s, tmax_s, cl_ok in sets:
+        sl = slice(0, ot._SLICE)
+        a = alive_s[sl]
+        o = torch.where(a[:, None], o_s[sl], DEAD_ORIGIN)
+        d = torch.where(a[:, None], d_s[sl], 1.0)
+        tmax = torch.where(a, tmax_s[sl], -1.0)
+        e = ot.octet_entries(o, d, tmax, w_lo, w_hi, cl_ok)
+        rays = torch.cat([o, d, tmax[:, None],
+                          torch.zeros_like(tmax)[:, None]], dim=1)
+        desc0, c0 = ot.round0_desc(e, dummy)
+        t0 = None
+        for slots in (1, 4):
+            if slots == 1:
+                desc = desc0
+            else:
+                desc, _ = ot.round1_desc(e, c0, t0, tmax, mode, dummy)
+            inputs = ot.round_inputs(rays, desc, slots, dummy)
+            t_k, i_k = ot.octet_round(*inputs, pack, slots)
+            t_p, i_p = ot.octet_round(*inputs, pack, slots, interpret=True)
             torch.cuda.synchronize()
-            t_k, i_k = t_k.reshape(-1)[:n], i_k.reshape(-1)[:n]
-            t_p, i_p = t_p.reshape(-1)[:n], i_p.reshape(-1)[:n]
+            if slots == 1:
+                t0 = t_p[:o.shape[0]]
             f_k, f_p = t_k < INF, t_p < INF
             agree = (f_k == f_p).float().mean().item()
-            _check(agree >= 0.999, f"{name}/{mode}: found masks agree on "
-                   f"only {agree:.5f} of rays")
             both = f_k & f_p
             err = (t_k - t_p).abs()[both].max().item() if both.any() else 0.0
-            if mode == "closest":
-                # t of the selected triangle, recomputed from its constants
-                tk = _tri_t(prep, o_s, d_s, i_k)[both]
-                tp = _tri_t(prep, o_s, d_s, i_p)[both]
-                _check(torch.allclose(tk, tp, rtol=1e-4, atol=1e-5),
-                       f"{name}/closest: selected-triangle t differs")
-            ms = _cuda_ms(lambda: bt.block_walk(*lists, pack, mode), 5)
-            plain = _cuda_ms(lambda: bt.block_walk(*lists, pack, mode,
-                                                   interpret=True), 2)
-            print(f"phase 3: {name:7s} {mode:7s} rays={n} found={agree:.5f} "
-                  f"agree, hits={int(f_k.sum())}, max|dt|={err:.3g}, "
-                  f"kernel {ms:.3f} ms, twin {plain:.3f} ms")
-            row = rows[mode]
+            same_i = (i_k == i_p)[both].float().mean().item() \
+                if both.any() else 1.0
+            _check(agree >= 0.999 and same_i >= 0.999,
+                   f"K3 {name} slots={slots}: kernel and twin disagree "
+                   f"(found {agree:.5f}, winners {same_i:.5f})")
+            ms = _cuda_ms(lambda: ot.octet_round(*inputs, pack, slots), 5)
+            plain = _cuda_ms(lambda: ot.octet_round(*inputs, pack, slots,
+                                                    interpret=True), 2)
+            print(f"phase 3: K3 {name:7s} slots={slots} rows="
+                  f"{inputs[0].shape[0]} live rows={int(inputs[0].sum())} "
+                  f"found={agree:.5f} agree, winners {same_i:.5f}, "
+                  f"hits={int(f_k.sum())}, max|dt|={err:.3g}, kernel "
+                  f"{ms:.3f} ms, twin {plain:.3f} ms")
+            row = rows[slots]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
             row["plain_ms"] += plain
     return rows
+
+
+def bench_frame(tag, sa, static, cfg, engine, samples, counters):
+    """Render the bench frame with ``counters`` (dicts of launch counts)
+    reset just before and read just after; check drops, the image and the
+    device rays per sample.  Returns (seconds, rays per sample, counts)."""
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import render
+    cfg.samples = samples
+    torch.cuda.synchronize()
+    for reset in counters.values():
+        reset[1]()
+    t0 = time.perf_counter()
+    out = render(sa, static, cfg, engine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: dict(c[0]) for k, c in counters.items()}
+    print(f"{tag}: {WIDTH}x{HEIGHT} {samples} spp in {secs:.2f} s: "
+          f"device_rays={out['device_rays']} "
+          f"({out['device_rays'] / secs / 1e6:.2f} Mrays/s), "
+          f"dropped={out['dropped_rays']}, kernel launches {counts}")
+    _check(out["dropped_rays"] == 0, f"{tag}: rays still dropped after "
+           "auto-raise")
+    color = out["color"]
+    _check(color.shape == (HEIGHT, WIDTH, 3) and np.isfinite(color).all(),
+           f"{tag}: image not finite or of the wrong shape")
+    _check(color.max() > 0.0, f"{tag}: image is all black")
+    per = out["device_rays"] / samples
+    _check(abs(per / RAYS_PER_SAMPLE - 1.0) <= 0.05,
+           f"{tag}: device rays per sample {per:.0f} not within 5% of "
+           f"{RAYS_PER_SAMPLE:.0f}")
+    print(f"{tag}: device rays per sample {per:.1f} vs the JAX package's "
+          f"{RAYS_PER_SAMPLE} ({per / RAYS_PER_SAMPLE - 1.0:+.4%})")
+    return secs, per, counts
+
+
+def compare_renders(tag, a, b):
+    import numpy as np
+    frac = np.isclose(a["color"], b["color"], rtol=2e-3, atol=2e-3).mean()
+    oid = (a["object_id"] == b["object_id"]).mean()
+    print(f"{tag}: color close on {frac:.5f}, object id equal on {oid:.5f}, "
+          f"device rays {a['device_rays']} vs {b['device_rays']}")
+    _check(frac >= 0.995 and oid >= 0.995, f"{tag}: renders differ")
 
 
 def _tri_t(prep, o, d, idx):
@@ -202,11 +333,16 @@ def main() -> int:
               "rustray_tpu_torch package is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import dataclasses
     import numpy as np
     from rustray_tpu_torch import EngineConfig, render, to_torch
     from rustray_tpu_torch import build
     from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops import octet_trace as ot
     from rustray_tpu_torch.render.wavefront import prepare_frame
+    from rustray_tpu_torch.tools import octet_kernel_bench as okb
+    from rustray_tpu_torch.tools.capture_waves import (
+        MIDDLE_CHUNK, capture, load_bench_scene)
 
     # ---- phase 1: the card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -219,15 +355,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- phase 2: build the kernel from the checkout ----
-    build.load_kernel_lib("block_trace")
-    print(f"phase 2: nvcc built block_trace.cu in "
-          f"{build.build_seconds['block_trace']:.2f} s")
-    for line in build.build_log.get("block_trace", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"phase 2: ptxas: {line.strip()}")
+    # ---- phase 2: build every kernel from the checkout, in parallel ----
+    build.build_kernel_libs(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
+        build.load_kernel_lib(name)
+        print(f"phase 2: nvcc built {name}.cu in "
+              f"{build.build_seconds[name]:.2f} s")
+        for line in build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                print(f"phase 2: ptxas: {line.strip()}")
 
-    # ---- phase 3: kernel vs twin on the bench scene ----
+    # ---- phase 3: kernels vs twins on the bench scene ----
     t0 = time.perf_counter()
     scene = load_bench_scene(WIDTH, HEIGHT)
     sa_np, static_np = scene.compile()
@@ -241,41 +380,30 @@ def main() -> int:
     prep, boxes = prepare_frame(sa, static, engine)
     _check(boxes is not None, "the bench engine did not select the block "
            "walk on CUDA")
+    _check(bt.pack_is_gated(prep.pallas_pack), "the bench pack should "
+           "select the gated walk")
     print(f"phase 3: bench scene loaded and compiled in "
           f"{time.perf_counter() - t0:.1f} s: {static.n_tris} triangles, "
           f"{static.n_clusters} clusters, {static.n_lights} lights, "
           f"pack {tuple(prep.pallas_pack.shape)}")
-    rows = compare_walks(sa, static, prep, boxes,
-                         level1_rays(sa, static, prep, boxes, cfg, engine))
+    sets = sorted_sets(sa, boxes,
+                       level1_rays(sa, static, prep, boxes, cfg, engine))
+    walk_rows = compare_walks(prep, boxes, sets)
+    check_argmin_ties()
+    round_rows = compare_rounds(prep, boxes, sets)
+
+    samples = int(os.environ.get("SMOKE_SAMPLES", 2))
+    walk = {"K1": (bt.launches, bt.reset_launches),
+            "K2": (bt.ungated_launches, bt.reset_launches)}
 
     # ---- phase 4: the main path ----
-    samples = int(os.environ.get("SMOKE_SAMPLES", 2))
-    cfg.samples = samples
-    torch.cuda.synchronize()
-    bt.reset_launches()
-    t0 = time.perf_counter()
-    out = render(sa, static, cfg, engine)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(bt.launches)
-    print(f"phase 4: {WIDTH}x{HEIGHT} {samples} spp in {secs:.2f} s: "
-          f"device_rays={out['device_rays']} "
-          f"({out['device_rays'] / secs / 1e6:.2f} Mrays/s), "
-          f"dropped={out['dropped_rays']}, kernel launches {launches}")
-    _check(all(launches[m] > 0 for m in launches),
-           f"a kernel mode never launched: {launches}")
-    _check(out["dropped_rays"] == 0, "rays still dropped after auto-raise")
-    color = out["color"]
-    _check(color.shape == (HEIGHT, WIDTH, 3) and np.isfinite(color).all(),
-           "image not finite or of the wrong shape")
-    _check(color.max() > 0.0, "image is all black")
-    per = out["device_rays"] / samples
-    _check(abs(per / RAYS_PER_SAMPLE - 1.0) <= 0.05,
-           f"device rays per sample {per:.0f} not within 5% of "
-           f"{RAYS_PER_SAMPLE:.0f}")
-    print(f"phase 4: device rays per sample {per:.1f} vs the JAX package's "
-          f"{RAYS_PER_SAMPLE} ({per / RAYS_PER_SAMPLE - 1.0:+.4%}); the "
-          f"TPU bench record is {TPU_RAYS_PER_SAMPLE:.1f}")
+    secs4, per4, c4 = bench_frame("phase 4", sa, static, cfg, engine,
+                                  samples, walk)
+    _check(all(n > 0 for n in c4["K1"].values()),
+           f"a K1 mode never launched: {c4['K1']}")
+    _check(not any(c4["K2"].values()), "the bench pack ran the ungated walk")
+    print(f"phase 4: the TPU bench record is {TPU_RAYS_PER_SAMPLE:.1f} rays "
+          f"per sample")
 
     # ---- phase 5: small frames against the JAX package and the twin ----
     ref = np.load(JAX_REFERENCE)
@@ -302,27 +430,93 @@ def main() -> int:
     t0 = time.perf_counter()
     k_out = render(sa5, st5, cfg5, engine)
     t1 = time.perf_counter()
-    p_out = render(sa5, st5, cfg5,
-                   EngineConfig(chunk_pixels=CHUNK, pallas_block=BLOCK,
-                                queue_factor=1.0, pallas="on",
-                                pallas_interpret=True))
+    p_out = render(sa5, st5, cfg5, dataclasses.replace(
+        engine, pallas="on", pallas_interpret=True))
     t2 = time.perf_counter()
-    frac = np.isclose(k_out["color"], p_out["color"], rtol=2e-3,
-                      atol=2e-3).mean()
-    oid = (k_out["object_id"] == p_out["object_id"]).mean()
     print(f"phase 5: 320x180 1 spp kernel {t1 - t0:.2f} s, twin "
-          f"{t2 - t1:.2f} s; color close on {frac:.5f}, object id equal on "
-          f"{oid:.5f}, device rays {k_out['device_rays']} vs "
-          f"{p_out['device_rays']}")
-    _check(frac >= 0.995 and oid >= 0.995, "kernel and twin renders differ")
+          f"{t2 - t1:.2f} s")
+    compare_renders("phase 5: 320x180 K1 vs twin", k_out, p_out)
 
-    print(json.dumps({"kernels": [
-        dict(name=f"block_walk[{m}]", route="cuda",
-             source="rustray_tpu_torch/csrc/block_trace.cu",
-             replaces=TPU_KERNEL, launches=launches[m],
-             max_abs_err=rows[m]["max_abs_err"], ms=rows[m]["ms"],
-             plain_ms=rows[m]["plain_ms"])
-        for m in ("closest", "any")]}))
+    # ---- phase 6: the octet path ----
+    octet = dataclasses.replace(engine, pallas_algo="octet")
+    octet_counts = {"K3": (ot.launches, ot.reset_counts), **walk}
+    secs6, per6, c6 = bench_frame("phase 6", sa, static, cfg, octet,
+                                  samples, octet_counts)
+    _check(all(n > 0 for n in c6["K3"].values()),
+           f"the octet path never launched a round: {c6['K3']}")
+    print(f"phase 6: octet frame {secs6:.2f} s vs block {secs4:.2f} s; "
+          f"device rays per sample {per6 - per4:+.1f} from phase 4's; "
+          f"fallback re-traced {ot.fallback['rays']} rays in "
+          f"{ot.fallback['calls']} calls")
+
+    # ---- phase 7: the large-pack path (K2) ----
+    budget = bt._VMEM_PACK_BUDGET
+    bt._VMEM_PACK_BUDGET = 0
+    try:
+        secs7, per7, c7 = bench_frame("phase 7", sa, static, cfg, engine, 1,
+                                      walk)
+        _check(not any(c7["K1"].values()) and all(
+            n > 0 for n in c7["K2"].values()),
+            f"the forced large-pack frame did not run only K2: {c7}")
+        k2_small = render(sa5, st5, cfg5, engine)
+    finally:
+        bt._VMEM_PACK_BUDGET = budget
+    print(f"phase 7: K2 frame {secs7:.2f} s at 1 spp; device rays per "
+          f"sample {per7 - per4:+.1f} from phase 4's")
+
+    # ---- phase 8: 320x180, octet vs block and K2 vs K1 ----
+    o_small = render(sa5, st5, cfg5, octet)
+    compare_renders("phase 8: 320x180 octet vs block", o_small, k_out)
+    compare_renders("phase 8: 320x180 K2 vs K1", k2_small, k_out)
+
+    # ---- phase 9: the octet kernel bench (K4) ----
+    cfg.samples = 1
+    waves = capture(sa, static, cfg, engine)
+    nlive, rays, aabb = okb.bench_inputs(waves, sa, boxes)
+    print(f"phase 9: captured chunk {MIDDLE_CHUNK}, level-3 closest "
+          f"wavefront: {rays.shape[0]} rays, {int(nlive[0])} live octets")
+    okb.reset_launches()
+    k4_ms = okb.time_variants(nlive, rays, aabb, prep.pallas_pack)
+    k4_launches = dict(okb.launches)
+    # the captured wavefront rarely meets clusters 0..15, so each variant
+    # is also checked on probe rays that do (okb.probe_inputs)
+    probe = okb.probe_inputs(sa, boxes, CHUNK)
+    k4_rows = {}
+    for v in okb.VARIANTS:
+        row = okb.check(nlive, rays, aabb, prep.pallas_pack, v)
+        p_row = okb.check(*probe, prep.pallas_pack, v)
+        _check(v == "v1" or p_row["hits"] > 0, f"K4 {v}: no hit on the "
+               "probe rays")
+        row["max_abs_err"] = max(row["max_abs_err"], p_row["max_abs_err"])
+        row["ms"] = k4_ms[v]
+        row["plain_ms"] = _cuda_ms(lambda: okb.bench_kernel(
+            nlive, rays, aabb, prep.pallas_pack, v, interpret=True), 1)
+        k4_rows[v] = row
+        print(f"phase 9: K4 {v:5s} found={row['found']:.5f} agree, "
+              f"hits={row['hits']}; probe found={p_row['found']:.5f} agree, "
+              f"hits={p_row['hits']}; max|dt|={row['max_abs_err']:.3g}, "
+              f"kernel {row['ms']:.3f} ms, twin {row['plain_ms']:.3f} ms")
+    _check(all(n > 0 for n in k4_launches.values()),
+           f"a K4 variant never launched: {k4_launches}")
+
+    def entry(name, source, replaces, launches, row):
+        return dict(name=name, route="cuda",
+                    source=f"rustray_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"])
+
+    kernels = (
+        [entry(f"block_walk[{m}]", "block_trace.cu", TPU_K1, c4["K1"][m],
+               walk_rows[(True, m)]) for m in ("closest", "any")]
+        + [entry(f"block_walk_ungated[{m}]", "block_trace.cu", TPU_K2,
+                 c7["K2"][m], walk_rows[(False, m)])
+           for m in ("closest", "any")]
+        + [entry(f"octet_round[slots={k}]", "octet_trace.cu", TPU_K3,
+                 c6["K3"][k], round_rows[k]) for k in (1, 4)]
+        + [entry(f"octet_bench[{v}]", "octet_bench.cu", TPU_K4,
+                 k4_launches[v], k4_rows[v]) for v in okb.VARIANTS])
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

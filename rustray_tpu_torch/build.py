@@ -42,27 +42,56 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _so_path(name: str):
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _build(names) -> None:
+    """Run one nvcc per missing library, all at once; raise on a failure.
+    Caller holds _LOCK."""
+    procs = []
+    t0 = time.perf_counter()
+    for name in names:
+        src, so = _so_path(name)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs.append((name, src, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, src, so, tmp, proc in procs:
+        out, err = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = err
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src}:\n{out}{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_kernel_libs(names) -> None:
+    """Build every named ``csrc/<name>.cu`` not yet built, one nvcc each,
+    in parallel (``build_seconds`` then holds each build's wall time from
+    the common start)."""
+    with _LOCK:
+        _build([n for n in names if n not in _LIBS])
+
+
 def load_kernel_lib(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-            build_log[name] = proc.stderr
-        build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
+        _build([name])
+        build_seconds.setdefault(name, 0.0)
+        lib = ctypes.CDLL(_so_path(name)[1])
         _LIBS[name] = lib
         return lib

@@ -1,9 +1,19 @@
 // Block walk: closest / any-hit ray x triangle traversal of per-block
 // front-to-back cluster visit lists, for Hopper (sm_90a).
 //
-// Replaces: rustray_tpu/ops/block_trace.py::_make_kernel_vmem, the Pallas
-// TPU kernel (its VMEM-resident variant).  Contract, identical to that
-// kernel and to the torch twin ops/block_trace.py::_walk_twin:
+// Replaces two Pallas TPU kernels of rustray_tpu/ops/block_trace.py, as
+// two variants of this one kernel (the ``gated`` argument):
+//   gated = 1: _make_kernel_vmem (K1, packs up to 64 MB).  A list entry is
+//     tested only by the quads its descriptor names; in any-hit mode a
+//     lane freezes at its first hit in list order.
+//   gated = 0: _make_kernel (K2, packs beyond 64 MB, which the TPU streams
+//     from HBM).  Every lane tests every entry; in any-hit mode a lane
+//     takes the group's nearest hit (lowest list position, then lowest
+//     lane, on exact ties) and freezes only at the group's end.  On Hopper
+//     the pack is read from global memory (L2) at any size, so K2 needs no
+//     streaming kernel of its own: only its contract differs.
+// Closest mode gives the same winners in both.  Contract, identical to the
+// torch twin ops/block_trace.py::_walk_twin:
 //   count (NB,) i32 list lengths; rays (NB, BN, 8) f32 rows
 //   [ox oy oz dx dy dz t_max pad]; order (NB, cpad) i32 descriptors
 //   (cluster id in bits 0-15, quad mask in bits 16-19); entry (NB, cpad)
@@ -62,7 +72,8 @@ __global__ void __launch_bounds__(1024) block_walk_kernel(
     const int* __restrict__ count, const float* __restrict__ rays,
     const int* __restrict__ order, const float* __restrict__ entry,
     const float* __restrict__ pack, float* __restrict__ t_out,
-    int* __restrict__ idx_out, int bn, int cpad, int K, int any_mode) {
+    int* __restrict__ idx_out, int bn, int cpad, int K, int any_mode,
+    int gated) {
   extern __shared__ float slab[];     // kRows x K
   __shared__ float red[32];
 
@@ -86,6 +97,10 @@ __global__ void __launch_bounds__(1024) block_walk_kernel(
   for (int j0 = 0; j0 < n; j0 += kGroup) {
     if (!(ent[j0] <= need)) break;    // need is CTA-uniform
     const int jend = min(j0 + kGroup, n);
+    // the ungated variant's group winner: strict '<' in list order keeps
+    // the earliest position on exact ties
+    float grp_t = kInf;
+    int grp_i = 0;
     for (int j = j0; j < jend; ++j) {
       const int desc = ord[j];
       const int cid = desc & 0xFFFF;
@@ -94,9 +109,10 @@ __global__ void __launch_bounds__(1024) block_walk_kernel(
       for (int e = threadIdx.x; e < kRows * K; e += blockDim.x)
         slab[e] = src[e];
       __syncthreads();
-      const bool gated = quad < 4 && ((desc >> (16 + quad)) & 1);
+      const bool listed =
+          quad < 4 && (!gated || ((desc >> (16 + quad)) & 1));
       const bool frozen = any_mode && best_t < kInf;
-      if (!gated || frozen) continue;
+      if (!listed || frozen) continue;
       float tile_t = kInf;
       int tile_k = 0;
       for (int k = 0; k < K; ++k) {
@@ -122,6 +138,13 @@ __global__ void __launch_bounds__(1024) block_walk_kernel(
           tile_k = k;
         }
       }
+      if (!gated) {
+        if (tile_t < grp_t) {
+          grp_t = tile_t;
+          grp_i = cid * K + tile_k;
+        }
+        continue;
+      }
       // closest: keep only a strictly nearer hit; any: the first hit
       // freezes the lane
       const bool better = any_mode ? tile_t < kInf : tile_t < best_t;
@@ -129,6 +152,11 @@ __global__ void __launch_bounds__(1024) block_walk_kernel(
         best_t = tile_t;
         best_i = cid * K + tile_k;
       }
+    }
+    if (!gated && (any_mode ? grp_t < kInf && best_t >= kInf
+                            : grp_t < best_t)) {
+      best_t = grp_t;
+      best_i = grp_i;
     }
     float lane_need;
     if (!lane_ok)
@@ -152,7 +180,7 @@ extern "C" int rr_block_trace(const int* count, const float* rays,
                               const int* order, const float* entry,
                               const float* pack, float* t_out, int* idx_out,
                               int nb, int bn, int cpad, int K, int any_mode,
-                              void* stream) {
+                              int gated, void* stream) {
   if (nb == 0) return 0;
   const int threads = (bn + 31) / 32 * 32;
   const size_t smem = static_cast<size_t>(kRows) * K * sizeof(float);
@@ -163,6 +191,7 @@ extern "C" int rr_block_trace(const int* count, const float* rays,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   block_walk_kernel<<<nb, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      count, rays, order, entry, pack, t_out, idx_out, bn, cpad, K, any_mode);
+      count, rays, order, entry, pack, t_out, idx_out, bn, cpad, K, any_mode,
+      gated);
   return static_cast<int>(cudaGetLastError());
 }

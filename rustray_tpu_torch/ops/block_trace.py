@@ -1,6 +1,6 @@
 """Per-ray-block cluster walk: the closest/any-hit mesh traversal.
 
-Port of ``rustray_tpu/ops/block_trace.py`` (the VMEM-resident path):
+Port of ``rustray_tpu/ops/block_trace.py``:
 
 1.  Rays arrive sorted by :func:`coherence_key` (direction octant + origin
     Morton code); dead rays sort last, so dead blocks visit nothing.
@@ -13,9 +13,21 @@ Port of ``rustray_tpu/ops/block_trace.py`` (the VMEM-resident path):
     ``interpret=True``) visits the list in groups of 8 and stops at the
     first group whose entry distance exceeds every lane's need.
 
-Tie semantics: within a slab the lowest triangle index wins; across
-clusters the nearer-entry cluster wins exact-t ties.  In any-hit mode a
-lane freezes at its first confirmed hit.
+The JAX package has two walks and picks one by the pack's size
+(``_VMEM_PACK_BUDGET``); the port keeps both contracts as two variants of
+one kernel:
+
+- **gated** (K1, the JAX ``_make_kernel_vmem``): a list entry is tested
+  only by the quads its descriptor names, and in any-hit mode a lane
+  freezes at its first hit in list order;
+- **ungated** (K2, the JAX ``_make_kernel``): every lane tests every
+  entry, and in any-hit mode a lane takes the nearest hit of the whole
+  group of 8 entries (lowest list position, then lowest triangle lane, on
+  exact ties) and freezes only at the group's end.
+
+Closest mode gives the same winners in both.  Tie semantics: within a slab
+the lowest triangle index wins; across clusters the nearer-entry cluster
+wins exact-t ties.
 """
 from __future__ import annotations
 
@@ -29,19 +41,36 @@ _BIG = 3.0e37
 # sentinel origin for dead/padding rays: far outside any scene — keeps them
 # out of the prologue's block bounds; their t_max of -1 vetoes any hit
 DEAD_ORIGIN = 2.0e37
-# list entries per early-exit check of the walk (the JAX kernel's
-# _VMEM_GROUP)
+# list entries per early-exit check of the walk (the JAX kernels'
+# _VMEM_GROUP and _GROUP)
 GROUP = 8
 _MODES = ("closest", "any")
+# pack bytes beyond which the JAX package streams slabs from HBM (its K2
+# kernel, ``_make_kernel``).  On Hopper the pack sits in global memory at
+# any size, so here the budget only selects the walk's contract: gated (K1)
+# up to it, ungated (K2) beyond it.  Read at call time (tests patch it).
+_VMEM_PACK_BUDGET = 64 * 1024 * 1024
 
-# launches of the CUDA block-walk kernel, per mode; only the kernel launch
-# in _walk_cuda counts (the twin never does)
+# launches of the CUDA block-walk kernel, per mode: ``launches`` for the
+# gated variant (K1), ``ungated_launches`` for the ungated one (K2); only
+# the kernel launch in _walk_cuda counts (the twin never does)
 launches = {"closest": 0, "any": 0}
+ungated_launches = {"closest": 0, "any": 0}
+# trace_tris_blocks calls per selected variant, twin or kernel alike
+selected = {"gated": 0, "ungated": 0}
 
 
 def reset_launches() -> None:
     for m in _MODES:
         launches[m] = 0
+        ungated_launches[m] = 0
+    selected["gated"] = selected["ungated"] = 0
+
+
+def pack_is_gated(pack) -> bool:
+    """The JAX package's variant rule (``trace_tris_blocks``): the gated
+    walk while the (C, 16, K) f32 pack fits ``_VMEM_PACK_BUDGET``."""
+    return pack.shape[0] * 16 * pack.shape[2] * 4 <= _VMEM_PACK_BUDGET
 
 
 def pack_cluster_tris(prep: TrianglePrep, tri_valid, n_clusters: int,
@@ -180,13 +209,45 @@ def _block_lists(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block, cpad,
 # The walk: CUDA kernel and its plain torch twin
 # --------------------------------------------------------------------------
 
-def _walk_twin(count, rays, order, entry, pack, mode: str):
+def slab_test(r, slabs):
+    """The twins' ray x slab test, in the kernels' operation order: rays
+    r (B, R, 8) rows [ox oy oz dx dy dz t_max pad] against slabs
+    (B, 16, K).  Returns (t (B, R) of the nearest hit within t_max, INF on
+    a miss; its lane (B, R) int32, the lowest on exact ties)."""
+    K = slabs.shape[2]
+    ox, oy, oz, dx, dy, dz, tmax = (r[..., i:i + 1] for i in range(7))
+    trs = slabs[:, :, None, :]                             # (B, 16, 1, K)
+    n0, n1, n2, an = trs[:, 0], trs[:, 1], trs[:, 2], trs[:, 3]
+    g10, g11, g12, c1 = trs[:, 4], trs[:, 5], trs[:, 6], trs[:, 7]
+    g20, g21, g22, c2 = trs[:, 8], trs[:, 9], trs[:, 10], trs[:, 11]
+    d_n = dx * n0 + dy * n1 + dz * n2                      # (B, R, K)
+    o_n = ox * n0 + oy * n1 + oz * n2
+    den = torch.abs(d_n) > 1e-30
+    t = (an - o_n) / torch.where(den, d_n, 1.0)
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    u = px * g10 + py * g11 + pz * g12 + c1
+    v = px * g20 + py * g21 + pz * g22 + c2
+    hit = (den & (t >= 0.0) & (u >= 0.0) & (v >= 0.0)
+           & (u + v <= 1.0) & (t <= tmax))
+    t_m = torch.where(hit, t, INF)
+    tmin = torch.amin(t_m, dim=2)                          # (B, R)
+    lane = torch.arange(K, dtype=torch.int32, device=r.device)
+    within = torch.amin(torch.where(t_m == tmin[..., None], lane, K), dim=2)
+    return tmin, torch.clamp(within, max=K - 1)
+
+
+def _walk_twin(count, rays, order, entry, pack, mode: str,
+               gated: bool = True):
     """Plain torch version of the block walk with the kernel's contract.
 
     Per group of GROUP list positions, the blocks still walking (next
     group's first entry distance within their need) visit positions j in
-    order, all at once: gather the (16, K) slabs, intersect the quads whose
-    descriptor bit is set, fold into the running best; then each block's
+    order, all at once: gather the (16, K) slabs and intersect them.  The
+    gated variant tests only the quads whose descriptor bit is set and folds
+    each slab into the running best; the ungated variant tests every lane
+    and folds the group's nearest hit at the group's end.  Then each block's
     need is recomputed.  Returns (t (NB, BN) — INF on miss, idx (NB, BN)
     int32)."""
     nb, bn, _ = rays.shape
@@ -194,7 +255,6 @@ def _walk_twin(count, rays, order, entry, pack, mode: str):
     dev = rays.device
     tmax = rays[..., 6]                                    # (NB, BN)
     quad = (torch.arange(bn, device=dev) // (bn // 4))[None]
-    lane = torch.arange(K, dtype=torch.int32, device=dev)
     best_t = torch.full((nb, bn), INF, device=dev)
     best_i = torch.zeros((nb, bn), dtype=torch.int32, device=dev)
     need = tmax.amax(dim=1)
@@ -205,43 +265,38 @@ def _walk_twin(count, rays, order, entry, pack, mode: str):
         act = torch.nonzero(walking).squeeze(1)            # (A,)
         if act.numel() == 0:
             break
-        r = rays[act]
-        ox, oy, oz = (r[..., i:i + 1] for i in range(3))   # (A, BN, 1)
-        dx, dy, dz = (r[..., i:i + 1] for i in range(3, 6))
+        r = rays[act]                                      # (A, BN, 8)
         tm = r[..., 6]
         bt, bi = best_t[act], best_i[act]
+        # the ungated variant's group winner (nearest, earliest position)
+        gt = torch.full_like(bt, INF)
+        gi = torch.zeros_like(bi)
         for j in range(j0, min(j0 + GROUP, order.shape[1])):
             desc = order[act, j]
             cid = (desc & 0xFFFF).long()
-            gate = (j < cnt[act])[:, None] & (
-                ((desc[:, None] >> 16) >> quad) & 1).bool()  # (A, BN)
-            trs = pack[cid][:, :, None, :]                 # (A, 16, 1, K)
-            n0, n1, n2, an = trs[:, 0], trs[:, 1], trs[:, 2], trs[:, 3]
-            g10, g11, g12, c1 = trs[:, 4], trs[:, 5], trs[:, 6], trs[:, 7]
-            g20, g21, g22, c2 = trs[:, 8], trs[:, 9], trs[:, 10], trs[:, 11]
-            d_n = dx * n0 + dy * n1 + dz * n2              # (A, BN, K)
-            o_n = ox * n0 + oy * n1 + oz * n2
-            den = torch.abs(d_n) > 1e-30
-            t = (an - o_n) / torch.where(den, d_n, 1.0)
-            px = ox + t * dx
-            py = oy + t * dy
-            pz = oz + t * dz
-            u = px * g10 + py * g11 + pz * g12 + c1
-            v = px * g20 + py * g21 + pz * g22 + c2
-            hit = (den & (t >= 0.0) & (u >= 0.0) & (v >= 0.0)
-                   & (u + v <= 1.0) & (t <= tm[..., None]))
-            t_m = torch.where(hit, t, INF)
-            tile_min = torch.amin(t_m, dim=2)              # (A, BN)
-            within = torch.amin(torch.where(t_m == tile_min[..., None], lane,
-                                            K), dim=2)
-            gidx = cid[:, None].to(torch.int32) * K + torch.clamp(within,
-                                                                  max=K - 1)
+            gate = (j < cnt[act])[:, None]                 # (A, 1)
+            if gated:
+                gate = gate & (((desc[:, None] >> 16) >> quad) & 1).bool()
+            tile_min, within = slab_test(r, pack[cid])     # (A, BN)
+            gidx = cid[:, None].to(torch.int32) * K + within
+            if not gated:
+                better = gate & (tile_min < gt)
+                gt = torch.where(better, tile_min, gt)
+                gi = torch.where(better, gidx, gi)
+                continue
             if mode == "any":
                 better = gate & (tile_min < INF) & (bt >= INF)
             else:
                 better = gate & (tile_min < bt)
             bt = torch.where(better, tile_min, bt)
             bi = torch.where(better, gidx, bi)
+        if not gated:
+            if mode == "any":
+                better = (gt < INF) & (bt >= INF)
+            else:
+                better = gt < bt
+            bt = torch.where(better, gt, bt)
+            bi = torch.where(better, gi, bi)
         best_t[act] = bt
         best_i[act] = bi
         if mode == "any":
@@ -252,7 +307,8 @@ def _walk_twin(count, rays, order, entry, pack, mode: str):
     return best_t, best_i
 
 
-def _walk_cuda(count, rays, order, entry, pack, mode: str):
+def _walk_cuda(count, rays, order, entry, pack, mode: str,
+               gated: bool = True):
     """Launch the CUDA block-walk kernel (csrc/block_trace.cu) on the
     current stream.  Returns (t (NB, BN), idx (NB, BN) int32)."""
     from ..build import load_kernel_lib
@@ -275,7 +331,7 @@ def _walk_cuda(count, rays, order, entry, pack, mode: str):
         raise ValueError("block walk: block_n must be a multiple of 4 and "
                          "at most 1024 (one thread per ray)")
     fn = load_kernel_lib("block_trace").rr_block_trace
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     t_out = torch.empty((nb, bn), dtype=torch.float32, device=rays.device)
@@ -284,25 +340,26 @@ def _walk_cuda(count, rays, order, entry, pack, mode: str):
         err = fn(count.data_ptr(), rays.data_ptr(), order.data_ptr(),
                  entry.data_ptr(), pack.data_ptr(), t_out.data_ptr(),
                  idx_out.data_ptr(), nb, bn, cpad, K, int(mode == "any"),
-                 torch.cuda.current_stream().cuda_stream)
+                 int(gated), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"block walk kernel launch failed: CUDA error "
                            f"{err}")
-    launches[mode] += 1
+    (launches if gated else ungated_launches)[mode] += 1
     return t_out, idx_out
 
 
 def block_walk(count, rays, order, entry, pack, mode: str = "closest",
-               interpret: bool = False):
+               interpret: bool = False, gated: bool = True):
     """The walk over prepared block lists: the CUDA kernel for CUDA
-    tensors, the torch twin for CPU tensors or ``interpret=True``."""
+    tensors, the torch twin for CPU tensors or ``interpret=True``.
+    ``gated`` selects K1's contract, else K2's (module docstring)."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}; got {mode!r}")
     if rays.device.type == "cuda" and not interpret:
-        return _walk_cuda(count, rays, order, entry, pack, mode)
+        return _walk_cuda(count, rays, order, entry, pack, mode, gated)
     if rays.device.type != "cpu" and not interpret:
         raise ValueError(f"block walk: no kernel for device {rays.device}")
-    return _walk_twin(count, rays, order, entry, pack, mode)
+    return _walk_twin(count, rays, order, entry, pack, mode, gated)
 
 
 def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):
@@ -349,8 +406,9 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     o, d: (N, 3) world rays (d normalized; pre-sorted by
     :func:`coherence_key` for speed, never for correctness).  ``t_max``
     (N,) caps accepted hits (None: unbounded); ``alive`` masks unused
-    lanes.  Returns (found (N,) bool, best_tri (N,) int32, best_t (N,) f32
-    — INF on miss)."""
+    lanes.  The pack's size selects the gated or ungated walk
+    (:func:`pack_is_gated`).  Returns (found (N,) bool, best_tri (N,)
+    int32, best_t (N,) f32 — INF on miss)."""
     if prep.pallas_pack is None:
         raise ValueError("trace_tris_blocks requires prep.pallas_pack — "
                          "build it with pack_cluster_tris")
@@ -359,7 +417,9 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     n = o.shape[0]
     count, rays, order, entry = prepare_walk(o, d, alive, t_max, w_lo, w_hi,
                                              cl_ok, block_n)
+    gated = pack_is_gated(prep.pallas_pack)
+    selected["gated" if gated else "ungated"] += 1
     t, idx = block_walk(count, rays, order, entry, prep.pallas_pack, mode,
-                        interpret)
+                        interpret, gated)
     t = t.reshape(-1)[:n]
     return t < INF, idx.reshape(-1)[:n], t

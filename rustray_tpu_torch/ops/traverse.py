@@ -1,13 +1,16 @@
 """Closest-hit tracing over the compiled scene, on tensors.
 
 Port of ``rustray_tpu/ops/traverse.py``.  Mesh traversal is either the
-dense linear scan (ops/intersect.closest_tri) or the coherence-sorted
-block walk (ops/block_trace.trace_tris_blocks: the CUDA kernel on CUDA
-tensors, its torch twin on the CPU or under ``pallas_interpret``).  Shadow
-rays carry ``t_max`` = distance to the light; the block walk stops at the
-first confirmed hit per lane in any-hit mode, the dense scan returns the
-nearest hit.  Per-winner data comes from the packed (T, 16) rows of
-``build_shade_packs`` and per-material data from ``build_mat_packs``.
+dense linear scan (ops/intersect.closest_tri) or a coherence-sorted
+cluster walk chosen by ``pallas_algo``: the block walk
+(ops/block_trace.trace_tris_blocks, the default) or the octet rounds
+(ops/octet_trace.trace_tris_octets, ``"octet"``), each a CUDA kernel on
+CUDA tensors and its torch twin on the CPU or under ``pallas_interpret``.
+Shadow rays carry ``t_max`` = distance to the light; the block walk stops
+at a confirmed hit per lane in any-hit mode, the octet rounds and the dense
+scan return the nearest hit.  Per-winner data comes from the packed (T, 16)
+rows of ``build_shade_packs`` and per-material data from
+``build_mat_packs``.
 """
 from __future__ import annotations
 
@@ -172,17 +175,28 @@ def coherence_sort(o, d, alive, t_max, w_lo, w_hi, cl_ok):
 
 
 def _sorted_mesh_trace(sa, static, prep, o, d, alive, t_max, cl_ok,
-                       accel_boxes, block_n, pallas_interpret, for_shadow):
-    """Coherence-sort rays, run the block walk, and restore the caller's
-    order.  Returns (found, tri, t)."""
-    from .block_trace import trace_tris_blocks
+                       accel_boxes, block_n, pallas_interpret, for_shadow,
+                       pallas_algo: str = "block"):
+    """Coherence-sort rays, run the octet rounds (``pallas_algo="octet"``)
+    or the block walk (any other value), and restore the caller's order.
+    Returns (found, tri, t)."""
     w_lo, w_hi = accel_boxes
     inv, o_s, d_s, alive_s, tmax_s = coherence_sort(o, d, alive, t_max,
                                                     w_lo, w_hi, cl_ok)
-    found_s, tri_s, t_s = trace_tris_blocks(
-        o_s, d_s, alive_s, tmax_s, prep, w_lo, w_hi, cl_ok,
-        static.cluster_size, block_n=block_n,
-        mode="any" if for_shadow else "closest", interpret=pallas_interpret)
+    mode = "any" if for_shadow else "closest"
+    if pallas_algo == "octet":
+        # the rounds' block-walk fallback keeps trace_tris_octets' own
+        # block_n, as in the JAX package
+        from .octet_trace import trace_tris_octets
+        found_s, tri_s, t_s = trace_tris_octets(
+            o_s, d_s, alive_s, tmax_s, prep, w_lo, w_hi, cl_ok,
+            static.cluster_size, mode=mode, interpret=pallas_interpret)
+    else:
+        from .block_trace import trace_tris_blocks
+        found_s, tri_s, t_s = trace_tris_blocks(
+            o_s, d_s, alive_s, tmax_s, prep, w_lo, w_hi, cl_ok,
+            static.cluster_size, block_n=block_n, mode=mode,
+            interpret=pallas_interpret)
     return found_s[inv], tri_s[inv], t_s[inv]
 
 
@@ -190,10 +204,12 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
                   for_shadow: bool, allow_reflection_only: bool,
                   tri_tile: int = 1024, accel_boxes=None, alive=None,
                   t_max=None, block_n: int = 512,
-                  pallas_interpret: bool = False) -> Hit:
+                  pallas_interpret: bool = False,
+                  pallas_algo: str = "block") -> Hit:
     """o (N,3), d (N,3) normalized.  ``accel_boxes`` (w_lo, w_hi) selects
-    the block walk over the dense scan.  ``alive`` masks rays whose result
-    is unused; ``t_max`` (N,) caps accepted hits."""
+    the cluster walk over the dense scan, and ``pallas_algo`` which walk
+    (``"octet"``: the octet rounds; else the block walk).  ``alive`` masks
+    rays whose result is unused; ``t_max`` (N,) caps accepted hits."""
     n = o.shape[0]
     dev = o.device
     inst_ok = instance_mask(sa, for_shadow, allow_reflection_only)
@@ -213,7 +229,8 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
             if bool(alive_f.any()):
                 found, tri_idx, t_sel = _sorted_mesh_trace(
                     sa, static, prep, o, d, alive_f, t_max, cl_ok,
-                    accel_boxes, block_n, pallas_interpret, for_shadow)
+                    accel_boxes, block_n, pallas_interpret, for_shadow,
+                    pallas_algo)
             else:
                 found = torch.zeros((n,), dtype=torch.bool, device=dev)
                 tri_idx = torch.zeros((n,), dtype=torch.int32, device=dev)

@@ -11,8 +11,10 @@ and the threefry keys (``fold_in`` of chunk start, sample cell, depth, and
 matches a JAX render of the same scene.
 
 Frames render as a host loop over pixel chunks.  Mesh traversal is the
-dense scan or the coherence-sorted block walk (ops/block_trace): the CUDA
-kernel for CUDA scene tensors, its torch twin on the CPU.
+dense scan or a coherence-sorted cluster walk, the block walk
+(ops/block_trace) or, with ``pallas_algo="octet"``, the octet rounds
+(ops/octet_trace): CUDA kernels for CUDA scene tensors, their torch twins
+on the CPU.
 """
 from __future__ import annotations
 
@@ -73,7 +75,8 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     Returns (emission (N,3) pre-weight, aov dict, children dict)."""
     dev = o.device
     trace_kw = dict(accel_boxes=boxes, block_n=engine.pallas_block,
-                    pallas_interpret=engine.pallas_interpret)
+                    pallas_interpret=engine.pallas_interpret,
+                    pallas_algo=engine.pallas_algo)
     d = safe_normalize(d)
     allow_ro = depth > 1
     hit = trace_closest(sa, static, prep, o, d, for_shadow=False,

@@ -5,8 +5,10 @@ The twin (``rustray_tpu_torch.ops.block_trace._walk_twin``, what
 kernel in interpret mode and against the dense scan, with the thresholds
 of tests/test_accel.py: found masks at least 99.9% equal and the selected
 triangle's t allclose at rtol=1e-4, atol=1e-5; any-hit mode compares only
-the found mask (the occluder may legitimately differ).  The CUDA kernel is
-held against the twin by tests/test_torch_cuda.py, which runs on a GPU.
+the found mask (the occluder may legitimately differ), except for the
+ungated walk (K2, packs over 64 MB), whose occluder is its contract.  The
+CUDA kernel is held against the twin by tests/test_torch_cuda.py, which
+runs on a GPU.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -82,6 +84,8 @@ def _tri_t(prep, o, d, idx):
 
 
 def _trace(acc, o, d, alive, tmax=None, mode="closest", block_n=256):
+    """The port's trace_tris_blocks on CPU tensors (the twin); returns
+    numpy (found, idx, t)."""
     f, i, t = bt.trace_tris_blocks(
         _t(o), _t(d), None if alive is None else _t(alive),
         None if tmax is None else _t(tmax), acc["prep_t"], *acc["boxes_t"],
@@ -193,3 +197,87 @@ def test_walk_refuses_other_devices(accel):
                       torch.zeros((1, 128), device="meta"),
                       accel["prep_t"].pallas_pack.to("meta"))
 
+
+def _force_ungated(monkeypatch):
+    """Both packages select their large-pack walk (K2) at any pack size,
+    as tests/test_accel.py:220-238 does for the JAX package."""
+    monkeypatch.setattr(j_bt, "_VMEM_PACK_BUDGET", 0)
+    monkeypatch.setattr(bt, "_VMEM_PACK_BUDGET", 0)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_ungated_twin_matches_jax_k2(accel, monkeypatch, mode):
+    """With the budget at 0 the port runs the ungated walk and matches the
+    JAX K2 kernel (interpret): found masks and t in closest mode; found
+    masks and the occluder (the group's nearest hit) in any mode."""
+    _force_ungated(monkeypatch)
+    prep = accel["prep"]
+    for name, o, d, alive in _batches(accel["sa"], 512):
+        f_j, i_j, _ = j_bt.trace_tris_blocks(
+            o, d, alive, None, prep, accel["w_lo"], accel["w_hi"],
+            jnp.asarray(accel["cl_ok"]), accel["static"].cluster_size,
+            block_n=256, mode=mode, interpret=True)
+        f_j, i_j = np.asarray(f_j) & alive, np.asarray(i_j)
+        bt.reset_launches()
+        f_p, i_p, t_p = _trace(accel, o, d, alive, mode=mode)
+        assert bt.selected == {"gated": 0, "ungated": 1}
+        assert bt.launches == bt.ungated_launches == {"closest": 0, "any": 0}
+        f_p = f_p & alive
+        assert (f_p == f_j).mean() >= 0.999, (name, mode)
+        both = f_p & f_j
+        assert both.any()
+        if mode == "closest":
+            np.testing.assert_allclose(_tri_t(prep, o, d, i_p)[both],
+                                       _tri_t(prep, o, d, i_j)[both],
+                                       rtol=1e-4, atol=1e-5)
+        else:
+            assert (i_p[both] == i_j[both]).mean() >= 0.999, name
+        np.testing.assert_allclose(t_p[f_p], _tri_t(prep, o, d, i_p)[f_p],
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_gated_and_ungated_agree_in_closest_mode(accel, monkeypatch):
+    """K1's quad gating never changes a closest-mode winner: the gated and
+    ungated twins select the same triangles on the same rays."""
+    for name, o, d, alive in _batches(accel["sa"], 512):
+        bt.reset_launches()
+        f_1, i_1, t_1 = _trace(accel, o, d, alive)
+        with monkeypatch.context() as m:
+            m.setattr(bt, "_VMEM_PACK_BUDGET", 0)
+            f_2, i_2, t_2 = _trace(accel, o, d, alive)
+        assert bt.selected == {"gated": 1, "ungated": 1}
+        assert (f_1 == f_2).mean() >= 0.999, name
+        both = f_1 & f_2
+        assert (i_1[both] == i_2[both]).mean() >= 0.999, name
+        np.testing.assert_allclose(t_1[both], t_2[both], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_ungated_any_takes_the_groups_nearest_hit():
+    """One block, one ray, a group of two slabs that both hold a hit: the
+    gated walk freezes at the first slab's (farther) hit, the ungated walk
+    at the group's nearest one."""
+    K = 4
+    pack = torch.zeros((3, 16, K))
+    # slab 0: plane z = 5 (t = 5); slab 1: plane z = 2 (t = 2), lane 0
+    for c, z in ((0, 5.0), (1, 2.0)):
+        pack[c, 2, 0] = 1.0                     # n = (0, 0, 1)
+        pack[c, 3, 0] = z                       # a.n
+        pack[c, 4, 0] = 1.0                     # u = x + 0.25
+        pack[c, 7, 0] = 0.25
+        pack[c, 9, 0] = 1.0                     # v = y + 0.25
+        pack[c, 11, 0] = 0.25
+    rays = torch.zeros((1, 4, 8))
+    rays[0, :, 5] = 1.0                         # d = +z, o = 0
+    rays[0, :, 6] = 100.0
+    count = torch.tensor([2], dtype=torch.int32)
+    order = torch.tensor([[0 | (15 << 16), 1 | (15 << 16)]],
+                         dtype=torch.int32)
+    entry = torch.tensor([[0.0, 0.0]])
+    for gated, want_t, want_i in ((True, 5.0, 0), (False, 2.0, K)):
+        t, i = bt.block_walk(count, rays, order, entry, pack, "any",
+                             gated=gated)
+        assert (t == want_t).all() and (i == want_i).all(), gated
+        t, i = bt.block_walk(count, rays, order, entry, pack, "closest",
+                             gated=gated)
+        assert (t == 2.0).all() and (i == K).all(), gated

@@ -1,7 +1,8 @@
-"""The CUDA block-walk kernel on a GPU, against its torch twin.
+"""The port's CUDA kernels on a GPU, against their torch twins.
 
-These tests need an NVIDIA GPU with nvcc: they build
-``rustray_tpu_torch/csrc/block_trace.cu`` and skip without a card.  They
+These tests need an NVIDIA GPU with nvcc: they build the kernels of
+``rustray_tpu_torch/csrc/`` (the block walk, gated and ungated; the octet
+round; the octet bench variants) and skip without a card.  They
 import only the port (no JAX package), so they run on a machine without
 JAX or flax:
 
@@ -19,6 +20,7 @@ import torch
 from rustray_tpu_torch import EngineConfig, render, to_torch
 from rustray_tpu_torch.models.procedural import bench_scene
 from rustray_tpu_torch.ops import block_trace as bt
+from rustray_tpu_torch.ops import octet_trace as ot
 from rustray_tpu_torch.ops import rays
 from rustray_tpu_torch.ops.intersect import INF, safe_normalize
 from rustray_tpu_torch.render.wavefront import prepare_frame
@@ -57,28 +59,85 @@ def _batches(sa, n, seed=3):
             (o_rnd, safe_normalize(d_rnd), alive)]
 
 
-def test_kernel_matches_twin(scene):
-    """Both modes on the same visit lists; each kernel call counts one
-    launch, the twin none."""
+def _agree(t_k, i_k, t_p, i_p):
+    torch.cuda.synchronize()
+    f_k, f_p = t_k < INF, t_p < INF
+    assert (f_k == f_p).float().mean() >= 0.999
+    both = f_k & f_p
+    torch.testing.assert_close(t_k[both], t_p[both], rtol=1e-4, atol=1e-5)
+    if both.any():
+        assert (i_k[both] == i_p[both]).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_kernel_matches_twin(scene, gated):
+    """Both modes of the gated (K1) and ungated (K2) walk on the same visit
+    lists; each kernel call counts one launch of its variant, the twin
+    none."""
     sa, static, _ = scene
     prep, (w_lo, w_hi) = prepare_frame(sa, static,
                                        EngineConfig(accel="on"))
+    count = bt.launches if gated else bt.ungated_launches
     for o, d, alive in _batches(sa, 1024):
         lists = bt.prepare_walk(o, d, alive, None, w_lo, w_hi, sa.cl_valid,
                                 128)
         for mode in ("closest", "any"):
-            before = bt.launches[mode]
-            t_k, i_k = bt.block_walk(*lists, prep.pallas_pack, mode)
-            assert bt.launches[mode] == before + 1
+            before = count[mode]
+            t_k, i_k = bt.block_walk(*lists, prep.pallas_pack, mode,
+                                     gated=gated)
+            assert count[mode] == before + 1
             t_p, i_p = bt.block_walk(*lists, prep.pallas_pack, mode,
-                                     interpret=True)
-            assert bt.launches[mode] == before + 1
-            torch.cuda.synchronize()
-            f_k, f_p = t_k < INF, t_p < INF
-            assert (f_k == f_p).float().mean() >= 0.999, mode
-            both = f_k & f_p
-            torch.testing.assert_close(t_k[both], t_p[both], rtol=1e-4,
-                                       atol=1e-5)
+                                     interpret=True, gated=gated)
+            assert count[mode] == before + 1
+            _agree(t_k, i_k, t_p, i_p)
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_octet_round_matches_twin(scene, slots):
+    """The round kernel against its twin on round-0 / round-1 style
+    descriptors (the nearest ``slots`` clusters per octet)."""
+    sa, static, _ = scene
+    prep, (w_lo, w_hi) = prepare_frame(sa, static,
+                                       EngineConfig(accel="on"))
+    pack = prep.pallas_pack
+    dummy = pack.shape[0] - 1
+    for o, d, alive in _batches(sa, 1024):
+        tmax = torch.where(alive, INF, -1.0)
+        e = ot.octet_entries(o, d, tmax, w_lo, w_hi, sa.cl_valid)
+        cols = []
+        for _ in range(slots):
+            c = torch.argmin(e, dim=1)
+            cols.append(torch.where(e.amin(dim=1) < INF, c, dummy))
+            e[torch.arange(e.shape[0], device="cuda"), c] = INF
+        desc = torch.stack(cols, dim=1).to(torch.int32)
+        rays_ = torch.cat([o, d, tmax[:, None],
+                           torch.zeros_like(tmax)[:, None]], dim=1)
+        inputs = ot.round_inputs(rays_, desc, slots, dummy)
+        before = ot.launches[slots]
+        t_k, i_k = ot.octet_round(*inputs, pack, slots)
+        t_p, i_p = ot.octet_round(*inputs, pack, slots, interpret=True)
+        assert ot.launches[slots] == before + 1
+        _agree(t_k, i_k, t_p, i_p)
+
+
+def test_octet_bench_variants_match_twins(scene):
+    """Every K4 variant against its twin on the probe rays (every variant
+    finds hits there) with the last 28 of 128 octets past nlive."""
+    from rustray_tpu_torch.tools import octet_kernel_bench as okb
+    sa, static, _ = scene
+    prep, boxes = prepare_frame(sa, static, EngineConfig(accel="on"))
+    _, rays_, aabb = okb.probe_inputs(sa, boxes, 1024)
+    nlive = torch.tensor([100], dtype=torch.int32, device="cuda")
+    assert prep.pallas_pack.shape[0] >= 16
+    for v in okb.VARIANTS:
+        before = okb.launches[v]
+        t_k, i_k = okb.bench_kernel(nlive, rays_, aabb, prep.pallas_pack, v)
+        t_p, i_p = okb.bench_kernel(nlive, rays_, aabb, prep.pallas_pack, v,
+                                    interpret=True)
+        assert okb.launches[v] == before + 1
+        _agree(t_k, i_k, t_p, i_p)
+        assert v == "v1" or bool((t_k < INF).any()), v
+        assert bool((t_k[800:] >= INF).all())
 
 
 def test_render_through_kernel_matches_twin(scene):
@@ -99,3 +158,20 @@ def test_render_through_kernel_matches_twin(scene):
     assert frac >= 0.995, frac
     assert (k_out["object_id"] == p_out["object_id"]).mean() >= 0.995
     assert k_out["dropped_rays"] == 0
+
+
+def test_octet_render_through_kernels_matches_block_walk(scene):
+    """pallas_algo="octet" through the round kernel (and the block walk
+    as its fallback) against the default block walk."""
+    sa, static, cfg = scene
+    ot.reset_counts()
+    o_out = render(sa, static, cfg, EngineConfig(
+        accel="on", chunk_pixels=4096, pallas_algo="octet"))
+    assert ot.launches[1] > 0 and ot.launches[4] > 0
+    b_out = render(sa, static, cfg,
+                   EngineConfig(accel="on", chunk_pixels=4096))
+    frac = np.isclose(o_out["color"], b_out["color"], rtol=2e-3,
+                      atol=2e-3).mean()
+    assert frac >= 0.995, frac
+    assert (o_out["object_id"] == b_out["object_id"]).mean() >= 0.995
+    assert o_out["device_rays"] == b_out["device_rays"]
