@@ -12,8 +12,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
   3. kernels vs twins on the full bench scene (data/bench, 249,698
      triangles in 2,593 clusters), on the primary rays of one 32768-pixel
      chunk and their level-1 shadow rays, timed: the block walk gated (K1)
-     and ungated (K2), closest and any-hit; the octet round (K3) on round-0
-     and round-1 descriptors; a tie check of torch.argmin on the card;
+     and ungated (K2), closest and any-hit (t, winners and the entries
+     each block visited equal to the twin's; the work the walk needs and
+     its bound printed per launch); the octet round (K3) on round-0 and
+     round-1 descriptors; a tie check of torch.argmin on the card;
   4. the main path: render() of the 1280x720 bench frame with the bench
      engine settings, counting kernel launches, drops and device rays;
   5. a 160x90 frame through the kernel against the JAX package's render of
@@ -72,76 +74,52 @@ def _cuda_ms(fn, iters):
 
 
 def _row():
-    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                bound_by="operations", tests=0)
 
 
-def level1_rays(sa, static, prep, boxes, cfg, engine):
-    """Primary rays of the frame's middle chunk (the top chunks see mostly
-    sky) at sample cell 0, and their level-1 shadow rays (light-major, as
-    the renderer batches them; no jitter)."""
+def round_work(flags, rays, desc_rows, K):
+    """K3's work on one round's inputs: a live descriptor row holds
+    128 / slots octets of 8 rays, each ray testing ``slots`` slabs of K
+    triangles, so 1,024 x K tests per row; bytes: rays, descriptors, each
+    named cluster's 12 slab rows once, t and idx out.  Returns (tests,
+    bound_ms, bound_by)."""
     import torch
-    from rustray_tpu_torch.ops import rays as rays_ops
-    from rustray_tpu_torch.ops.intersect import INF, dot, safe_normalize
-    from rustray_tpu_torch.ops.traverse import hit_attributes, trace_closest
-    from rustray_tpu_torch.utils.mathutil import (sample_cell_size,
-                                                  sample_pattern)
-    dev = sa.verts.device
-    n_pix = static.width * static.height
-    start = n_pix // 2 // CHUNK * CHUNK
-    idx = torch.arange(start, start + CHUNK, device=dev) % n_pix
-    cell = sample_pattern(cfg.samples, engine.seed)[0]
-    o, d = rays_ops.primary_rays(
-        sa.camera, static.width, static.height,
-        (idx % static.width).to(torch.int32),
-        (idx // static.width).to(torch.int32), int(cell[0]), int(cell[1]),
-        sample_cell_size(cfg.samples), cfg.aperture_size, cfg.focal_length,
-        cfg.samples)
-    d = safe_normalize(d)
-    alive = torch.ones((CHUNK,), dtype=torch.bool, device=dev)
-    hit = trace_closest(sa, static, prep, o, d, for_shadow=False,
-                        allow_reflection_only=False, accel_boxes=boxes,
-                        alive=alive, block_n=engine.pallas_block)
-    attrs = hit_attributes(sa, static, prep, o, d, hit)
-    lights = sa.lights
-    is_dir = (lights.kind == 0)[None, :]
-    to_light = lights.pos[None] - attrs.point[:, None]
-    dtl = torch.where(is_dir[..., None], safe_normalize(-lights.dir)[None],
-                      safe_normalize(to_light))
-    ldist = torch.sqrt(torch.clamp(dot(to_light, to_light), min=1e-12))
-    L = lights.pos.shape[0]
-    sh_o = (attrs.point + attrs.normal * 1e-3)[None].expand(L, CHUNK, 3)
-    sh_d = dtl.transpose(0, 1)
-    sh_alive = (hit.hit[None] & lights.enabled[:, None])
-    sh_tmax = torch.where(is_dir, INF, ldist).transpose(0, 1)
-    return ((o, d, alive, None),
-            (sh_o.reshape(-1, 3), sh_d.reshape(-1, 3), sh_alive.reshape(-1),
-             sh_tmax.reshape(-1)))
+    from rustray_tpu_torch.tools.walk_compare import FLOPS_PER_TEST, bound
+    live = flags > 0
+    tests = int(live.sum()) * 1024 * K
+    clusters = int(torch.unique(desc_rows[live]).numel())
+    nbytes = (rays.numel() * 4 + desc_rows.numel() * 4 + flags.numel() * 4
+              + clusters * 12 * K * 4 + rays.shape[0] * 8)
+    return (tests, *bound(tests * FLOPS_PER_TEST, nbytes))
 
 
-def sorted_sets(sa, boxes, ray_sets):
-    """Phase 3's ray sets as the walks see them: coherence-sorted, with
-    the scene-exit cap, per (name, mode)."""
-    from rustray_tpu_torch.ops.traverse import coherence_sort, instance_mask
-    w_lo, w_hi = boxes
-    out = []
-    for name, (o, d, alive, t_max), for_shadow in zip(
-            ("primary", "shadow"), ray_sets, (False, True)):
-        inst_ok = instance_mask(sa, for_shadow, False)
-        cl_ok = sa.cl_valid & inst_ok[sa.cl_inst.long()]
-        _, o_s, d_s, alive_s, tmax_s = coherence_sort(o, d, alive, t_max,
-                                                      w_lo, w_hi, cl_ok)
-        out.append((name, "any" if for_shadow else "closest", o_s, d_s,
-                    alive_s, tmax_s, cl_ok))
-    return out
+def bench_work(nlive, rays, aabb, K, variant):
+    """K4's work per variant: each live octet's (8, cpad) slab test (28
+    flops per ray x cluster, counted in csrc/octet_bench.cu), then, past
+    v1, 16 visits of 8 rays x K triangles (31 flops each) and, in v3/v4,
+    16 argmins over cpad (2 operations per entry); bytes: the live rays,
+    the AABB table, 16 slabs' 12 rows, t and idx out.  Returns (tests,
+    bound_ms, bound_by)."""
+    from rustray_tpu_torch.tools.walk_compare import FLOPS_PER_TEST, bound
+    octets = int(nlive[0])
+    cpad = aabb.shape[1]
+    tests = 0 if variant == "v1" else octets * 16 * 8 * K
+    flops = (octets * 8 * cpad * 28 + tests * FLOPS_PER_TEST
+             + (octets * 16 * cpad * 2 if variant in ("v3", "v4") else 0))
+    nbytes = (octets * 8 * 32 + aabb.numel() * 4 + 16 * 12 * K * 4
+              + rays.shape[0] * 8)
+    return (tests, *bound(flops, nbytes))
 
 
 def compare_walks(prep, boxes, sets):
     """Phase 3: the block walk and its twin on the same visit lists, gated
-    (K1) and ungated (K2), both modes.  Returns {(gated, mode): row} of the
-    kernel table (without launches)."""
+    (K1) and ungated (K2), both modes: t, winners and the entries each
+    block visited must be equal; the walk's work and bound are printed.
+    Returns {(gated, mode): row} of the kernel table (without launches)."""
     import torch
     from rustray_tpu_torch.ops import block_trace as bt
-    from rustray_tpu_torch.ops.intersect import INF
+    from rustray_tpu_torch.tools.walk_compare import same_as_twin, walk_work
     w_lo, w_hi = boxes
     pack = prep.pallas_pack
     rows = {(g, m): _row() for g in (True, False) for m in ("closest", "any")}
@@ -152,43 +130,45 @@ def compare_walks(prep, boxes, sets):
         for gated in (True, False):
             tag = "K1" if gated else "K2"
             for mode in ("closest", "any"):
-                t_k, i_k = bt.block_walk(*lists, pack, mode, gated=gated)
-                t_p, i_p = bt.block_walk(*lists, pack, mode, interpret=True,
-                                         gated=gated)
+                t_k, i_k, v_k = bt.block_walk(*lists, pack, mode,
+                                              gated=gated,
+                                              return_visited=True)
+                t_p, i_p, v_p = bt.block_walk(*lists, pack, mode,
+                                              interpret=True, gated=gated,
+                                              return_visited=True)
                 torch.cuda.synchronize()
-                t_k, i_k = t_k.reshape(-1)[:n], i_k.reshape(-1)[:n]
-                t_p, i_p = t_p.reshape(-1)[:n], i_p.reshape(-1)[:n]
-                f_k, f_p = t_k < INF, t_p < INF
-                agree = (f_k == f_p).float().mean().item()
-                _check(agree >= 0.999, f"{tag} {name}/{mode}: found masks "
-                       f"agree on only {agree:.5f} of rays")
-                both = f_k & f_p
-                err = (t_k - t_p).abs()[both].max().item() if both.any() \
-                    else 0.0
-                same_i = (i_k == i_p)[both].float().mean().item() \
-                    if both.any() else 1.0
-                _check(same_i >= 0.999, f"{tag} {name}/{mode}: winners "
-                       f"agree on only {same_i:.5f} of found rays")
-                if mode == "closest":
-                    # t of the selected triangle, recomputed from its
-                    # constants
-                    tk = _tri_t(prep, o_s, d_s, i_k)[both]
-                    tp = _tri_t(prep, o_s, d_s, i_p)[both]
-                    _check(torch.allclose(tk, tp, rtol=1e-4, atol=1e-5),
-                           f"{tag} {name}/closest: selected-triangle t "
-                           f"differs")
+                agree, same_i, err = same_as_twin((t_k, i_k), (t_p, i_p))
+                _check(agree == 1.0 and same_i == 1.0 and err == 0.0,
+                       f"{tag} {name}/{mode}: kernel and twin differ (found "
+                       f"{agree:.5f}, winners {same_i:.5f}, max|dt| {err})")
+                _check(torch.equal(v_k, v_p), f"{tag} {name}/{mode}: "
+                       "visited entries differ from the twin's")
+                work = walk_work(lists, v_p, pack.shape[2], gated)
                 ms = _cuda_ms(lambda: bt.block_walk(*lists, pack, mode,
                                                     gated=gated), 5)
                 plain = _cuda_ms(lambda: bt.block_walk(
                     *lists, pack, mode, interpret=True, gated=gated), 1)
                 print(f"phase 3: {tag} {name:7s} {mode:7s} rays={n} "
                       f"found={agree:.5f} agree, winners {same_i:.5f}, "
-                      f"hits={int(f_k.sum())}, max|dt|={err:.3g}, kernel "
-                      f"{ms:.3f} ms, twin {plain:.3f} ms")
+                      f"hits={int((t_k < 3e38).sum())}, max|dt|={err:.3g}, "
+                      f"visited equal, kernel {ms:.3f} ms, twin "
+                      f"{plain:.3f} ms")
+                print(f"phase 3: {tag} {name:7s} {mode:7s} work: blocks "
+                      f"{work['blocks']}, entries visited {work['entries']} "
+                      f"(median {work['median']:g}, max {work['max']}), "
+                      f"listed quads per entry "
+                      f"{work['quads_per_entry']:.3f}, tests "
+                      f"{work['tests']}, clusters {work['clusters']}; bound "
+                      f"FP32 {work['fp32_ms']:.4f} ms, bytes "
+                      f"{work['bytes_ms']:.4f} ms; kernel at "
+                      f"{work['bound_ms'] / ms:.2%} of its bound")
                 row = rows[(gated, mode)]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 row["ms"] += ms
                 row["plain_ms"] += plain
+                row["bound_ms"] += work["bound_ms"]
+                row["bound_by"] = work["bound_by"]
+                row["tests"] += work["tests"]
     return rows
 
 
@@ -262,10 +242,17 @@ def compare_rounds(prep, boxes, sets):
                   f"found={agree:.5f} agree, winners {same_i:.5f}, "
                   f"hits={int(f_k.sum())}, max|dt|={err:.3g}, kernel "
                   f"{ms:.3f} ms, twin {plain:.3f} ms")
+            tests, b_ms, b_by = round_work(*inputs, pack.shape[2])
+            print(f"phase 3: K3 {name:7s} slots={slots} tests={tests}, "
+                  f"bound {b_ms:.4f} ms ({b_by}); kernel at "
+                  f"{b_ms / ms:.2%} of its bound")
             row = rows[slots]
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["ms"] += ms
             row["plain_ms"] += plain
+            row["bound_ms"] += b_ms
+            row["bound_by"] = b_by
+            row["tests"] += tests
     return rows
 
 
@@ -313,15 +300,6 @@ def compare_renders(tag, a, b):
     _check(frac >= 0.995 and oid >= 0.995, f"{tag}: renders differ")
 
 
-def _tri_t(prep, o, d, idx):
-    import torch
-    from rustray_tpu_torch.ops.intersect import dot
-    n = prep.n[idx.long()]
-    dn = dot(d, n)
-    dn = torch.where(dn.abs() > 1e-30, dn, 1.0)
-    return (prep.an[idx.long()] - dot(o, n)) / dn
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,6 +321,7 @@ def main() -> int:
     from rustray_tpu_torch.tools import octet_kernel_bench as okb
     from rustray_tpu_torch.tools.capture_waves import (
         MIDDLE_CHUNK, capture, load_bench_scene)
+    from rustray_tpu_torch.tools.walk_compare import level1_rays, sorted_sets
 
     # ---- phase 1: the card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -491,20 +470,26 @@ def main() -> int:
         row["ms"] = k4_ms[v]
         row["plain_ms"] = _cuda_ms(lambda: okb.bench_kernel(
             nlive, rays, aabb, prep.pallas_pack, v, interpret=True), 1)
+        row["tests"], row["bound_ms"], row["bound_by"] = bench_work(
+            nlive, rays, aabb, prep.pallas_pack.shape[2], v)
         k4_rows[v] = row
         print(f"phase 9: K4 {v:5s} found={row['found']:.5f} agree, "
               f"hits={row['hits']}; probe found={p_row['found']:.5f} agree, "
               f"hits={p_row['hits']}; max|dt|={row['max_abs_err']:.3g}, "
-              f"kernel {row['ms']:.3f} ms, twin {row['plain_ms']:.3f} ms")
+              f"kernel {row['ms']:.3f} ms, twin {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     _check(all(n > 0 for n in k4_launches.values()),
            f"a K4 variant never launched: {k4_launches}")
 
     def entry(name, source, replaces, launches, row):
+        # no one PyTorch call computes any of these walks: library_ms null
         return dict(name=name, route="cuda",
                     source=f"rustray_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"])
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=None,
+                    tests=row["tests"])
 
     kernels = (
         [entry(f"block_walk[{m}]", "block_trace.cu", TPU_K1, c4["K1"][m],

@@ -1,8 +1,9 @@
 """ctypes binding to the native C++ cluster-BVH builder.
 
-Compiles the JAX package's ``rustray_tpu/native/cluster_bvh.cpp`` on first
-use (g++, cached as a shared object in the port's git-ignored build
-directory, never next to the source).  ``load()`` returns None when no toolchain is
+Compiles the port's own ``native/cluster_bvh.cpp`` (a verbatim copy of the
+JAX package's, pinned by tests/test_torch_host.py) on first use (g++,
+cached as a shared object in the port's git-ignored build directory, never
+next to the source).  ``load()`` returns None when no toolchain is
 available; callers fall back to the NumPy builder with identical semantics.
 """
 from __future__ import annotations
@@ -18,8 +19,7 @@ _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
-                           "rustray_tpu", "native")
+_NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "native")
 _SRC = os.path.abspath(os.path.join(_NATIVE_DIR, "cluster_bvh.cpp"))
 _SO = os.path.join(BUILD_DIR, "libcluster_bvh.so")
 

@@ -11,7 +11,13 @@ Port of ``rustray_tpu/ops/block_trace.py``:
 3.  The walk (``csrc/block_trace.cu`` on CUDA tensors; :func:`_walk_twin`,
     its plain torch version with the same contract, on CPU tensors or under
     ``interpret=True``) visits the list in groups of 8 and stops at the
-    first group whose entry distance exceeds every lane's need.
+    first group whose entry distance exceeds every lane's need.  The kernel
+    splits it in two passes over work units of one group each
+    (:func:`unit_list`): pass A computes every unit's partial result per
+    ray over the whole card, pass B replays the walk's rule over each
+    block's units in list order.  :func:`_walk_units_twin` is that
+    decomposition in plain torch; the tests hold it bit for bit against
+    :func:`_walk_twin`.
 
 The JAX package has two walks and picks one by the pack's size
 (``_VMEM_PACK_BUDGET``); the port keeps both contracts as two variants of
@@ -42,8 +48,10 @@ _BIG = 3.0e37
 # out of the prologue's block bounds; their t_max of -1 vetoes any hit
 DEAD_ORIGIN = 2.0e37
 # list entries per early-exit check of the walk (the JAX kernels'
-# _VMEM_GROUP and _GROUP)
+# _VMEM_GROUP and _GROUP), and per work unit of the CUDA kernel
 GROUP = 8
+# triangles per slab that the CUDA kernel is compiled for (its kK)
+KERNEL_K = 128
 _MODES = ("closest", "any")
 # pack bytes beyond which the JAX package streams slabs from HBM (its K2
 # kernel, ``_make_kernel``).  On Hopper the pack sits in global memory at
@@ -239,7 +247,7 @@ def slab_test(r, slabs):
 
 
 def _walk_twin(count, rays, order, entry, pack, mode: str,
-               gated: bool = True):
+               gated: bool = True, return_visited: bool = False):
     """Plain torch version of the block walk with the kernel's contract.
 
     Per group of GROUP list positions, the blocks still walking (next
@@ -249,7 +257,8 @@ def _walk_twin(count, rays, order, entry, pack, mode: str,
     each slab into the running best; the ungated variant tests every lane
     and folds the group's nearest hit at the group's end.  Then each block's
     need is recomputed.  Returns (t (NB, BN) — INF on miss, idx (NB, BN)
-    int32)."""
+    int32), and with ``return_visited`` also the list entries each block
+    visited ((NB,) int32)."""
     nb, bn, _ = rays.shape
     K = pack.shape[2]
     dev = rays.device
@@ -257,6 +266,7 @@ def _walk_twin(count, rays, order, entry, pack, mode: str,
     quad = (torch.arange(bn, device=dev) // (bn // 4))[None]
     best_t = torch.full((nb, bn), INF, device=dev)
     best_i = torch.zeros((nb, bn), dtype=torch.int32, device=dev)
+    visited = torch.zeros((nb,), dtype=torch.int32, device=dev)
     need = tmax.amax(dim=1)
     walking = count > 0
     cnt = count.long()
@@ -265,6 +275,7 @@ def _walk_twin(count, rays, order, entry, pack, mode: str,
         act = torch.nonzero(walking).squeeze(1)            # (A,)
         if act.numel() == 0:
             break
+        visited[act] += torch.clamp(count[act] - j0, max=GROUP)
         r = rays[act]                                      # (A, BN, 8)
         tm = r[..., 6]
         bt, bi = best_t[act], best_i[act]
@@ -304,17 +315,122 @@ def _walk_twin(count, rays, order, entry, pack, mode: str,
         else:
             lane_need = torch.minimum(bt, tm)
         need[act] = lane_need.amax(dim=1)
+    if return_visited:
+        return best_t, best_i, visited
+    return best_t, best_i
+
+
+def unit_list(count):
+    """The CUDA walk's work units: one per group of GROUP list positions of
+    each block, numbered block by block.  Returns (units (NB,) int32 =
+    ceil(count / GROUP), ustart (NB,) int32, the inclusive cumsum: block b
+    owns units [ustart[b] - units[b], ustart[b]))."""
+    units = torch.div(count + (GROUP - 1), GROUP, rounding_mode="floor")
+    return units, torch.cumsum(units, 0, dtype=torch.int32)
+
+
+def unit_blocks(count):
+    """Every unit's (block (U,) int64, group (U,) int64), in unit order:
+    what the kernel finds by a binary search of ``ustart``."""
+    units, ustart = unit_list(count)
+    n = int(ustart[-1]) if count.numel() else 0
+    u = torch.arange(n, device=count.device)
+    blk = torch.searchsorted(ustart.long(), u, right=True)
+    return blk, u - (ustart.long() - units.long())[blk]
+
+
+def _walk_units_twin(count, rays, order, entry, pack, mode: str,
+                     gated: bool = True, return_visited: bool = False):
+    """The CUDA kernel's two-pass decomposition of the walk in plain torch
+    (tests only; :func:`_walk_twin` is the contract).
+
+    Pass A: every unit (block b, group g) folds its entries' slab results
+    per ray in list order, regardless of the walk's state: the strictly
+    nearest hit (earliest entry, then lowest lane, on ties), or in the
+    gated any-hit mode the first entry with a hit.  Pass B: each block
+    replays the walk over its units in order, stopping at the first group
+    whose entry distance exceeds its need, and folds each unit's partial as
+    the walk folds a group.  Same returns as :func:`_walk_twin`."""
+    nb, bn, _ = rays.shape
+    K = pack.shape[2]
+    dev = rays.device
+    quad = (torch.arange(bn, device=dev) // (bn // 4))[None]
+    units, ustart = unit_list(count)
+    blk, grp = unit_blocks(count)                          # (U,)
+    # pass A
+    r = rays[blk]                                          # (U, BN, 8)
+    cnt = count.long()[blk]
+    part_t = torch.full((blk.numel(), bn), INF, device=dev)
+    part_i = torch.zeros((blk.numel(), bn), dtype=torch.int32, device=dev)
+    first_hit = gated and mode == "any"
+    for e in range(GROUP):
+        j = grp * GROUP + e
+        desc = order[blk, torch.clamp(j, max=order.shape[1] - 1)]
+        cid = (desc & 0xFFFF).long()
+        gate = (j < cnt)[:, None]
+        if gated:
+            gate = gate & (((desc[:, None] >> 16) >> quad) & 1).bool()
+        tile_min, within = slab_test(r, pack[cid])         # (U, BN)
+        if first_hit:
+            better = gate & (tile_min < INF) & (part_t >= INF)
+        else:
+            better = gate & (tile_min < part_t)
+        part_t = torch.where(better, tile_min, part_t)
+        part_i = torch.where(better, cid[:, None].to(torch.int32) * K
+                             + within, part_i)
+    # pass B
+    tmax = rays[..., 6]
+    best_t = torch.full((nb, bn), INF, device=dev)
+    best_i = torch.zeros((nb, bn), dtype=torch.int32, device=dev)
+    visited = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    need = tmax.amax(dim=1)
+    first = (ustart - units).long()
+    walking = count > 0
+    for g in range(int(units.max()) if nb else 0):
+        walking = walking & (g < units) & (entry[:, g * GROUP] <= need)
+        act = torch.nonzero(walking).squeeze(1)
+        if act.numel() == 0:
+            break
+        u = first[act] + g
+        pt, pi = part_t[u], part_i[u]
+        bt, bi = best_t[act], best_i[act]
+        if mode == "any":
+            better = (pt < INF) & (bt >= INF)
+        else:
+            better = pt < bt
+        bt = torch.where(better, pt, bt)
+        best_t[act] = bt
+        best_i[act] = torch.where(better, pi, bi)
+        visited[act] += torch.clamp(count[act] - g * GROUP, max=GROUP)
+        if mode == "any":
+            lane_need = torch.where(bt < INF, -INF, tmax[act])
+        else:
+            lane_need = torch.minimum(bt, tmax[act])
+        need[act] = lane_need.amax(dim=1)
+    if return_visited:
+        return best_t, best_i, visited
     return best_t, best_i
 
 
 def _walk_cuda(count, rays, order, entry, pack, mode: str,
-               gated: bool = True):
-    """Launch the CUDA block-walk kernel (csrc/block_trace.cu) on the
-    current stream.  Returns (t (NB, BN), idx (NB, BN) int32)."""
+               gated: bool = True, return_visited: bool = False):
+    """Launch the CUDA block walk (csrc/block_trace.cu: pass A over the
+    units, pass B per block) on the current stream.  Returns (t (NB, BN),
+    idx (NB, BN) int32), and with ``return_visited`` the entries each block
+    visited ((NB,) int32).
+
+    The partials go in a workspace of one row of BN per possible unit,
+    NB * ceil(cpad / GROUP) rows (t f32 and idx i32: 264 MB for the bench's
+    98,304 shadow rays), sized from shapes alone so that no host sync waits
+    for the unit count; PyTorch's caching allocator keeps it between
+    calls."""
     from ..build import load_kernel_lib
     nb, bn, width = rays.shape
     n_rows, _, K = pack.shape
     cpad = order.shape[1]
+    if K != KERNEL_K:
+        raise ValueError(f"block walk: the kernel is compiled for slabs of "
+                         f"K={KERNEL_K} triangles; got K={K}")
     for name, x, dtype, shape in (
             ("count", count, torch.int32, (nb,)),
             ("rays", rays, torch.float32, (nb, bn, 8)),
@@ -331,35 +447,48 @@ def _walk_cuda(count, rays, order, entry, pack, mode: str,
         raise ValueError("block walk: block_n must be a multiple of 4 and "
                          "at most 1024 (one thread per ray)")
     fn = load_kernel_lib("block_trace").rr_block_trace
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    t_out = torch.empty((nb, bn), dtype=torch.float32, device=rays.device)
-    idx_out = torch.empty((nb, bn), dtype=torch.int32, device=rays.device)
-    with torch.cuda.device(rays.device):
-        err = fn(count.data_ptr(), rays.data_ptr(), order.data_ptr(),
-                 entry.data_ptr(), pack.data_ptr(), t_out.data_ptr(),
-                 idx_out.data_ptr(), nb, bn, cpad, K, int(mode == "any"),
-                 int(gated), torch.cuda.current_stream().cuda_stream)
+    dev = rays.device
+    _, ustart = unit_list(count)
+    ws_rows = nb * -(-cpad // GROUP)
+    ws_t = torch.empty((ws_rows, bn), dtype=torch.float32, device=dev)
+    ws_i = torch.empty((ws_rows, bn), dtype=torch.int32, device=dev)
+    t_out = torch.empty((nb, bn), dtype=torch.float32, device=dev)
+    idx_out = torch.empty((nb, bn), dtype=torch.int32, device=dev)
+    visited = torch.empty((nb,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(count.data_ptr(), ustart.data_ptr(), rays.data_ptr(),
+                 order.data_ptr(), entry.data_ptr(), pack.data_ptr(),
+                 ws_t.data_ptr(), ws_i.data_ptr(), t_out.data_ptr(),
+                 idx_out.data_ptr(), visited.data_ptr(), nb, bn, cpad,
+                 int(mode == "any"), int(gated),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"block walk kernel launch failed: CUDA error "
                            f"{err}")
     (launches if gated else ungated_launches)[mode] += 1
+    if return_visited:
+        return t_out, idx_out, visited
     return t_out, idx_out
 
 
 def block_walk(count, rays, order, entry, pack, mode: str = "closest",
-               interpret: bool = False, gated: bool = True):
+               interpret: bool = False, gated: bool = True,
+               return_visited: bool = False):
     """The walk over prepared block lists: the CUDA kernel for CUDA
     tensors, the torch twin for CPU tensors or ``interpret=True``.
-    ``gated`` selects K1's contract, else K2's (module docstring)."""
+    ``gated`` selects K1's contract, else K2's (module docstring);
+    ``return_visited`` adds the entries each block visited."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}; got {mode!r}")
+    args = (count, rays, order, entry, pack, mode, gated, return_visited)
     if rays.device.type == "cuda" and not interpret:
-        return _walk_cuda(count, rays, order, entry, pack, mode, gated)
+        return _walk_cuda(*args)
     if rays.device.type != "cpu" and not interpret:
         raise ValueError(f"block walk: no kernel for device {rays.device}")
-    return _walk_twin(count, rays, order, entry, pack, mode, gated)
+    return _walk_twin(*args)
 
 
 def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):

@@ -1,0 +1,120 @@
+"""Where the bench frame's time goes on the card: one 1280x720 frame under
+``torch.profiler``.
+
+Usage (repository root, one CUDA card):
+
+    python -m rustray_tpu_torch.tools.profile_frame [block|octet|ungated]
+        [samples]
+
+Renders the frame once unprofiled and once profiled (after a 320x180
+warm-up), with the bench engine settings of ``chip_smoke.py`` (chunk
+32,768, blocks of 128, queue factor 1.0): ``block`` is the block walk
+(K1), ``octet`` the octet rounds (K3), ``ungated`` the block walk with the
+pack budget forced to 0 (K2).  From the profiler's trace it prints the
+profiled wall, the device's busy time (the union of its kernel, copy and
+memset intervals), the idle share (1 - busy / profiled wall) and the
+kernels with the most device time.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_summary(trace_path: str, top: int = 25):
+    """(busy seconds, [(name, seconds, calls)] by device time) from a
+    chrome trace written by torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = []
+    by_name = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
+            continue
+        t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((t0, t0 + dur))
+        s, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (s + dur, n + 1)
+    spans.sort()
+    busy, end = 0.0, -1e300
+    for t0, t1 in spans:
+        if t1 <= end:
+            continue
+        busy += t1 - max(t0, end)
+        end = t1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy / 1e6, [(k, s / 1e6, n) for k, (s, n) in ranked]
+
+
+def main(argv=None) -> int:
+    from ..config import EngineConfig
+    from ..ops import block_trace as bt
+    from ..render.wavefront import render
+    from ..scene_arrays import to_torch
+    from .capture_waves import load_bench_scene
+    argv = sys.argv[1:] if argv is None else argv
+    algo = argv[0] if argv else "block"
+    samples = int(argv[1]) if len(argv) > 1 else 1
+    if algo not in ("block", "octet", "ungated"):
+        raise SystemExit(f"profile_frame: unknown path {algo!r}")
+    if not torch.cuda.is_available():
+        print("profile_frame: needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    engine = EngineConfig(chunk_pixels=32768, pallas_block=128,
+                          queue_factor=1.0)
+    if algo == "octet":
+        engine = dataclasses.replace(engine, pallas_algo="octet")
+    budget = bt._VMEM_PACK_BUDGET
+    if algo == "ungated":
+        bt._VMEM_PACK_BUDGET = 0
+    try:
+        small = load_bench_scene(320, 180)
+        sa, st = to_torch(*small.compile(), "cuda")
+        cfg = small.raytracing_config
+        cfg.samples = 1
+        render(sa, st, cfg, engine)                      # warm-up
+        scene = load_bench_scene(1280, 720)
+        sa, st = to_torch(*scene.compile(), "cuda")
+        cfg = scene.raytracing_config
+        cfg.samples = samples
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(sa, st, cfg, engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = render(sa, st, cfg, engine)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+    finally:
+        bt._VMEM_PACK_BUDGET = budget
+    from ..build import BUILD_DIR
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    trace = os.path.join(BUILD_DIR, f"trace_{algo}.json")
+    prof.export_chrome_trace(trace)
+    busy, ranked = device_summary(trace)
+    print(f"{algo}: 1280x720 {samples} spp: wall {wall:.3f} s unprofiled, "
+          f"{wall_p:.3f} s profiled; device busy {busy:.3f} s, idle share "
+          f"{1.0 - busy / wall_p:.3f}; device rays {out['device_rays']}")
+    for k, s, n in ranked:
+        print(f"  {s * 1e3:10.1f} ms {n:7d} calls {s / busy:7.2%}  {k[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -281,3 +281,83 @@ def test_ungated_any_takes_the_groups_nearest_hit():
         t, i = bt.block_walk(count, rays, order, entry, pack, "closest",
                              gated=gated)
         assert (t == 2.0).all() and (i == K).all(), gated
+
+
+def _cut_lists(acc, case):
+    """Visit lists at block_n 128 for the two-pass tests.  "camera": the
+    camera rays that hit, with two all-dead blocks (count 0); the any-hit
+    walk stops early there.  "synthetic": hand-made lists over the pack's
+    clusters (lengths 0..40, random quad masks, entry distances rising by
+    up to 4 per position) for the same rays, so the early exit also cuts
+    closest-mode lists."""
+    _, o, d, _ = _batches(acc["sa"], 1024)[0]
+    args = (*acc["boxes_t"], _t(acc["cl_ok"]), 128)
+    lists = bt.prepare_walk(_t(o), _t(d), None, None, *args)
+    t, _ = bt._walk_twin(*lists, acc["prep_t"].pallas_pack, "closest")
+    alive = (t < INF).reshape(-1)
+    alive[256:512] = False
+    lists = bt.prepare_walk(_t(o), _t(d), alive, None, *args)
+    if case == "camera":
+        return lists
+    rng = np.random.default_rng(7)
+    nb, cpad = lists[2].shape
+    count = rng.integers(0, 41, nb).astype(np.int32)
+    count[2] = 0
+    cid = rng.integers(0, acc["static"].n_clusters, (nb, cpad))
+    order = cid | (rng.integers(1, 16, (nb, cpad)) << 16)
+    entry = np.cumsum(rng.uniform(0, 4.0, (nb, cpad)), axis=1)
+    listed = np.arange(cpad)[None] < count[:, None]
+    return (_t(count), lists[1], _t(np.where(listed, order, 0)
+                                    .astype(np.int32)),
+            _t(np.where(listed, entry, INF).astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", ["camera", "synthetic"])
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("gated", [True, False])
+def test_units_twin_matches_walk_twin(accel, gated, mode, case):
+    """The kernel's two-pass decomposition (pass A per unit of GROUP
+    entries, pass B per block in list order) gives the serial walk's t,
+    idx and visited entries bit for bit, on lists the early exit cuts and
+    on blocks with count 0."""
+    lists = _cut_lists(accel, case)
+    count = lists[0]
+    pack = accel["prep_t"].pallas_pack
+    t_w, i_w, v_w = bt._walk_twin(*lists, pack, mode, gated,
+                                  return_visited=True)
+    t_u, i_u, v_u = bt._walk_units_twin(*lists, pack, mode, gated,
+                                        return_visited=True)
+    assert (count == 0).any() and bool((t_w < INF).any())
+    if case == "synthetic" or mode == "any":
+        assert (v_w < count).any()
+    assert torch.equal(t_u, t_w) and torch.equal(i_u, i_w)
+    assert torch.equal(v_u, v_w)
+    t_b, i_b = bt.block_walk(*lists, pack, mode, gated=gated)
+    assert torch.equal(t_b, t_w) and torch.equal(i_b, i_w)
+
+
+def test_unit_list_on_hand_made_counts():
+    count = torch.tensor([0, 1, 8, 9, 17, 0, 16], dtype=torch.int32)
+    units, ustart = bt.unit_list(count)
+    assert units.tolist() == [0, 1, 1, 2, 3, 0, 2]
+    assert ustart.tolist() == [0, 1, 2, 4, 7, 7, 9]
+    assert units.dtype == ustart.dtype == torch.int32
+    blk, grp = bt.unit_blocks(count)
+    assert blk.tolist() == [1, 2, 3, 3, 4, 4, 4, 6, 6]
+    assert grp.tolist() == [0, 0, 0, 1, 0, 1, 2, 0, 1]
+    blk, grp = bt.unit_blocks(torch.zeros(3, dtype=torch.int32))
+    assert blk.numel() == grp.numel() == 0
+
+
+def test_walk_cuda_refuses_other_slab_widths():
+    """The kernel is compiled for K = 128: any other width raises before
+    a build or a launch (CPU tensors reach no CUDA call)."""
+    K = 64
+    count = torch.zeros(1, dtype=torch.int32)
+    rays = torch.zeros((1, 128, 8))
+    order = torch.zeros((1, 128), dtype=torch.int32)
+    entry = torch.zeros((1, 128))
+    with pytest.raises(ValueError, match="K=128"):
+        bt._walk_cuda(count, rays, order, entry, torch.zeros((2, 16, K)),
+                      "closest")
+    assert bt.launches == bt.ungated_launches == {"closest": 0, "any": 0}

@@ -72,8 +72,8 @@ def _agree(t_k, i_k, t_p, i_p):
 @pytest.mark.parametrize("gated", [True, False])
 def test_kernel_matches_twin(scene, gated):
     """Both modes of the gated (K1) and ungated (K2) walk on the same visit
-    lists; each kernel call counts one launch of its variant, the twin
-    none."""
+    lists, with the entries each block visited equal to the twin's; each
+    kernel call counts one launch of its variant, the twin none."""
     sa, static, _ = scene
     prep, (w_lo, w_hi) = prepare_frame(sa, static,
                                        EngineConfig(accel="on"))
@@ -83,13 +83,15 @@ def test_kernel_matches_twin(scene, gated):
                                 128)
         for mode in ("closest", "any"):
             before = count[mode]
-            t_k, i_k = bt.block_walk(*lists, prep.pallas_pack, mode,
-                                     gated=gated)
+            t_k, i_k, v_k = bt.block_walk(*lists, prep.pallas_pack, mode,
+                                          gated=gated, return_visited=True)
             assert count[mode] == before + 1
-            t_p, i_p = bt.block_walk(*lists, prep.pallas_pack, mode,
-                                     interpret=True, gated=gated)
+            t_p, i_p, v_p = bt.block_walk(*lists, prep.pallas_pack, mode,
+                                          interpret=True, gated=gated,
+                                          return_visited=True)
             assert count[mode] == before + 1
             _agree(t_k, i_k, t_p, i_p)
+            assert torch.equal(v_k, v_p)
 
 
 @pytest.mark.parametrize("slots", [1, 4])

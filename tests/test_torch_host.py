@@ -7,6 +7,7 @@ copy to its original: the source text may differ only where the port had
 to change it, and scenes loaded and compiled through either package give
 equal leaves.
 """
+import ast
 import dataclasses
 import difflib
 import json
@@ -38,6 +39,7 @@ _VERBATIM = {
     "accel/__init__.py": [], "accel/builder.py": [],
     "models/__init__.py": [],
     "models/procedural.py": [r"sponza\.json\)\.  Returns the JSON path\.$"],
+    "native/cluster_bvh.cpp": [],
 }
 
 
@@ -56,6 +58,42 @@ def test_host_copy_is_verbatim(rel):
             f"{rel}: line changed in the port's copy: {line!r}")
     if rel == "scene/compile.py":
         assert not any("flax" in l or "struct." in l for l in port)
+
+
+def test_native_source_is_the_ports_own():
+    """The cluster builder compiles the port's copy of cluster_bvh.cpp,
+    never the JAX package's file."""
+    from rustray_tpu_torch.accel import native
+    pkg = os.path.dirname(os.path.abspath(rustray_tpu_torch.__file__))
+    assert os.path.commonpath([native._SRC, pkg]) == pkg, native._SRC
+    assert os.path.isfile(native._SRC)
+
+
+def _code_strings(path):
+    """String constants of a module's code, docstrings left out."""
+    tree = ast.parse(open(path).read())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_names_no_path_into_the_jax_package():
+    """No string in the port's code names the JAX package's directory as
+    a path component (a file the port would read from there)."""
+    pkg = os.path.dirname(os.path.abspath(rustray_tpu_torch.__file__))
+    for dirpath, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "_build"]
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            for s in _code_strings(os.path.join(dirpath, name)):
+                assert "rustray_tpu" not in re.split(r"[\\/]", s), (
+                    name, s)
 
 
 def test_config_copy_matches_up_to_use_pallas():
