@@ -14,8 +14,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
      chunk and their level-1 shadow rays, timed: the block walk gated (K1)
      and ungated (K2), closest and any-hit (t, winners and the entries
      each block visited equal to the twin's; the work the walk needs and
-     its bound printed per launch); the octet round (K3) on round-0 and
-     round-1 descriptors; a tie check of torch.argmin on the card;
+     its bound printed per launch); the octet rounds (K3, round 0 and
+     round 1 with the selection fused in) exactly against their twins on
+     each set's first slice, round 1 in both modes, with the slice's time;
+     a tie check of torch.argmin on the card;
   4. the main path: render() of the 1280x720 bench frame with the bench
      engine settings, counting kernel launches, drops and device rays;
   5. a 160x90 frame through the kernel against the JAX package's render of
@@ -76,22 +78,6 @@ def _cuda_ms(fn, iters):
 def _row():
     return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                 bound_by="operations", tests=0)
-
-
-def round_work(flags, rays, desc_rows, K):
-    """K3's work on one round's inputs: a live descriptor row holds
-    128 / slots octets of 8 rays, each ray testing ``slots`` slabs of K
-    triangles, so 1,024 x K tests per row; bytes: rays, descriptors, each
-    named cluster's 12 slab rows once, t and idx out.  Returns (tests,
-    bound_ms, bound_by)."""
-    import torch
-    from rustray_tpu_torch.tools.walk_compare import FLOPS_PER_TEST, bound
-    live = flags > 0
-    tests = int(live.sum()) * 1024 * K
-    clusters = int(torch.unique(desc_rows[live]).numel())
-    nbytes = (rays.numel() * 4 + desc_rows.numel() * 4 + flags.numel() * 4
-              + clusters * 12 * K * 4 + rays.shape[0] * 8)
-    return (tests, *bound(tests * FLOPS_PER_TEST, nbytes))
 
 
 def bench_work(nlive, rays, aabb, K, variant):
@@ -192,67 +178,62 @@ def check_argmin_ties():
 
 
 def compare_rounds(prep, boxes, sets):
-    """Phase 3: the octet round and its twin on the round-0 and round-1
-    descriptors of each set's first 32768-ray slice.  Returns {slots:
-    row} of the kernel table (without launches)."""
+    """Phase 3: the two octet round kernels (K3) against their twins on
+    each set's first 32,768-ray slice, exactly (round 0: e, c0, t, idx;
+    round 1 in both modes: t, idx, over, slots, remaining), each timed
+    with its twin, with its work and bound; then the whole slice, kernels
+    against the twin chain.  Returns {slots: row} of the kernel table
+    (without launches): 1 for round 0, 4 for round 1."""
     import torch
     from rustray_tpu_torch.ops import octet_trace as ot
-    from rustray_tpu_torch.ops.block_trace import DEAD_ORIGIN
     from rustray_tpu_torch.ops.intersect import INF
-    w_lo, w_hi = boxes
+    from rustray_tpu_torch.tools.round_compare import (
+        check_rounds, new_slice, round_work, slice_inputs)
     pack = prep.pallas_pack
-    dummy = pack.shape[0] - 1
     rows = {1: _row(), 4: _row()}
-    for name, mode, o_s, d_s, alive_s, tmax_s, cl_ok in sets:
-        sl = slice(0, ot._SLICE)
-        a = alive_s[sl]
-        o = torch.where(a[:, None], o_s[sl], DEAD_ORIGIN)
-        d = torch.where(a[:, None], d_s[sl], 1.0)
-        tmax = torch.where(a, tmax_s[sl], -1.0)
-        e = ot.octet_entries(o, d, tmax, w_lo, w_hi, cl_ok)
-        rays = torch.cat([o, d, tmax[:, None],
-                          torch.zeros_like(tmax)[:, None]], dim=1)
-        desc0, c0 = ot.round0_desc(e, dummy)
-        t0 = None
-        for slots in (1, 4):
-            if slots == 1:
-                desc = desc0
-            else:
-                desc, _ = ot.round1_desc(e, c0, t0, tmax, mode, dummy)
-            inputs = ot.round_inputs(rays, desc, slots, dummy)
-            t_k, i_k = ot.octet_round(*inputs, pack, slots)
-            t_p, i_p = ot.octet_round(*inputs, pack, slots, interpret=True)
-            torch.cuda.synchronize()
-            if slots == 1:
-                t0 = t_p[:o.shape[0]]
-            f_k, f_p = t_k < INF, t_p < INF
-            agree = (f_k == f_p).float().mean().item()
-            both = f_k & f_p
-            err = (t_k - t_p).abs()[both].max().item() if both.any() else 0.0
-            same_i = (i_k == i_p)[both].float().mean().item() \
-                if both.any() else 1.0
-            _check(agree >= 0.999 and same_i >= 0.999,
-                   f"K3 {name} slots={slots}: kernel and twin disagree "
-                   f"(found {agree:.5f}, winners {same_i:.5f})")
-            ms = _cuda_ms(lambda: ot.octet_round(*inputs, pack, slots), 5)
-            plain = _cuda_ms(lambda: ot.octet_round(*inputs, pack, slots,
-                                                    interpret=True), 2)
-            print(f"phase 3: K3 {name:7s} slots={slots} rows="
-                  f"{inputs[0].shape[0]} live rows={int(inputs[0].sum())} "
-                  f"found={agree:.5f} agree, winners {same_i:.5f}, "
-                  f"hits={int(f_k.sum())}, max|dt|={err:.3g}, kernel "
-                  f"{ms:.3f} ms, twin {plain:.3f} ms")
-            tests, b_ms, b_by = round_work(*inputs, pack.shape[2])
-            print(f"phase 3: K3 {name:7s} slots={slots} tests={tests}, "
-                  f"bound {b_ms:.4f} ms ({b_by}); kernel at "
-                  f"{b_ms / ms:.2%} of its bound")
-            row = rows[slots]
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row["ms"] += ms
-            row["plain_ms"] += plain
-            row["bound_ms"] += b_ms
-            row["bound_by"] = b_by
-            row["tests"] += tests
+
+    def add(slots, ms, plain, work):
+        row = rows[slots]
+        row["ms"] += ms
+        row["plain_ms"] += plain
+        row["bound_ms"] += work["bound_ms"]
+        row["bound_by"] = work["bound_by"]
+        row["tests"] += work["tests"]
+        return (f"kernel {ms:.3f} ms, twin {plain:.3f} ms; tests "
+                f"{work['tests']}, {work['flops']} FP32 operations, "
+                f"{work['bytes']} bytes, bound {work['bound_ms']:.4f} ms "
+                f"({work['bound_by']}); kernel at "
+                f"{work['bound_ms'] / ms:.2%} of its bound")
+
+    for name, _, o_s, d_s, alive_s, tmax_s, cl_ok in sets:
+        o, d, tmax = slice_inputs(o_s, d_s, alive_s, tmax_s)
+        r0, r1 = check_rounds(o, d, tmax, boxes, cl_ok, pack,
+                              ("closest", "any"))
+        ms = _cuda_ms(lambda: ot.round0(o, d, tmax, *boxes, cl_ok, pack), 5)
+        plain = _cuda_ms(lambda: ot.round0(o, d, tmax, *boxes, cl_ok, pack,
+                                           interpret=True), 1)
+        for mode in ("closest", "any"):
+            w0, w1 = round_work(o, tmax, r0[0], r0[1], r1[mode][3], pack)
+            if mode == "closest":
+                print(f"phase 3: K3 round 0 {name:7s} rays={o.shape[0]} e, "
+                      f"c0, t and idx equal to the twin's, hits="
+                      f"{int((r0[2] < INF).sum())}; {add(1, ms, plain, w0)}")
+            ms1 = _cuda_ms(lambda: ot.round1(o, d, tmax, *r0, pack, mode), 5)
+            plain1 = _cuda_ms(lambda: ot.round1(o, d, tmax, *r0, pack, mode,
+                                                interpret=True), 1)
+            t1, _, over, slots, _ = r1[mode]
+            print(f"phase 3: K3 round 1 {name:7s} {mode:7s} t, idx, over, "
+                  f"slots and remaining equal to the twin's, hits="
+                  f"{int((t1 < INF).sum())}, filled slots "
+                  f"{int((slots != pack.shape[0] - 1).sum())}, octets over "
+                  f"4 {int(over.sum())}; {add(4, ms1, plain1, w1)}")
+            k_ms = _cuda_ms(lambda: new_slice(o, d, tmax, boxes, cl_ok, pack,
+                                              mode), 5)
+            p_ms = _cuda_ms(lambda: new_slice(o, d, tmax, boxes, cl_ok, pack,
+                                              mode, interpret=True), 1)
+            print(f"phase 3: K3 slice {name:7s} {mode:7s} (selection and "
+                  f"both rounds): kernels {k_ms:.3f} ms, twin chain "
+                  f"{p_ms:.3f} ms")
     return rows
 
 
@@ -425,7 +406,7 @@ def main() -> int:
            f"the octet path never launched a round: {c6['K3']}")
     print(f"phase 6: octet frame {secs6:.2f} s vs block {secs4:.2f} s; "
           f"device rays per sample {per6 - per4:+.1f} from phase 4's; "
-          f"fallback re-traced {ot.fallback['rays']} rays in "
+          f"fallback re-traced {int(ot.fallback['rays'])} rays in "
           f"{ot.fallback['calls']} calls")
 
     # ---- phase 7: the large-pack path (K2) ----

@@ -139,14 +139,14 @@ def walk_work(lists, visited, K: int, gated: bool):
                 bound_by=by)
 
 
-def load_old(src: str) -> ctypes.CDLL:
-    """Build an earlier block_trace.cu (one-pass C interface) with the
+def build_source(src: str, stem: str) -> ctypes.CDLL:
+    """Build a kernel source (an earlier version, outside csrc/) with the
     port's nvcc flags into the build directory and load it."""
     from .. import build
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(build.NVCC_FLAGS)
                                 .encode()).hexdigest()[:16]
-    so = os.path.join(build.BUILD_DIR, f"libblock_trace_old-{digest}.so")
+    so = os.path.join(build.BUILD_DIR, f"lib{stem}-{digest}.so")
     if not os.path.exists(so):
         os.makedirs(build.BUILD_DIR, exist_ok=True)
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so,
@@ -154,7 +154,13 @@ def load_old(src: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src}:\n"
                                f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so)
+
+
+def load_old(src: str) -> ctypes.CDLL:
+    """An earlier block_trace.cu (one-pass C interface), built and
+    loaded."""
+    lib = build_source(src, "block_trace_old")
     lib.rr_block_trace.argtypes = [ctypes.c_void_p] * 7 \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.rr_block_trace.restype = ctypes.c_int

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on a GPU, against their torch twins.
 
 These tests need an NVIDIA GPU with nvcc: they build the kernels of
-``rustray_tpu_torch/csrc/`` (the block walk, gated and ungated; the octet
-round; the octet bench variants) and skip without a card.  They
+``rustray_tpu_torch/csrc/`` (the block walk, gated and ungated; the two
+octet rounds; the octet bench variants) and skip without a card.  They
 import only the port (no JAX package), so they run on a machine without
 JAX or flax:
 
@@ -11,7 +11,7 @@ JAX or flax:
 Thresholds of tests/test_accel.py: found masks at least 99.9% equal and t
 allclose at rtol=1e-4, atol=1e-5; renders: color within rtol=2e-3,
 atol=2e-3 on at least 99.5% of pixels and object ids equal on at least
-99.5%.
+99.5%.  The octet rounds and the walk are held to their twins exactly.
 """
 import numpy as np
 import pytest
@@ -96,30 +96,63 @@ def test_kernel_matches_twin(scene, gated):
 
 @pytest.mark.parametrize("slots", [1, 4])
 def test_octet_round_matches_twin(scene, slots):
-    """The round kernel against its twin on round-0 / round-1 style
-    descriptors (the nearest ``slots`` clusters per octet)."""
+    """The fused round kernels against their twins, exactly: round 0
+    (``slots`` 1: e, c0, t, idx) and round 1 (``slots`` 4: t, idx, over,
+    slots, remaining, both modes) on the twin's round-0 outputs; each
+    kernel call counts one launch, the twin none."""
     sa, static, _ = scene
     prep, (w_lo, w_hi) = prepare_frame(sa, static,
                                        EngineConfig(accel="on"))
     pack = prep.pallas_pack
-    dummy = pack.shape[0] - 1
     for o, d, alive in _batches(sa, 1024):
         tmax = torch.where(alive, INF, -1.0)
-        e = ot.octet_entries(o, d, tmax, w_lo, w_hi, sa.cl_valid)
-        cols = []
-        for _ in range(slots):
-            c = torch.argmin(e, dim=1)
-            cols.append(torch.where(e.amin(dim=1) < INF, c, dummy))
-            e[torch.arange(e.shape[0], device="cuda"), c] = INF
-        desc = torch.stack(cols, dim=1).to(torch.int32)
-        rays_ = torch.cat([o, d, tmax[:, None],
-                           torch.zeros_like(tmax)[:, None]], dim=1)
-        inputs = ot.round_inputs(rays_, desc, slots, dummy)
-        before = ot.launches[slots]
-        t_k, i_k = ot.octet_round(*inputs, pack, slots)
-        t_p, i_p = ot.octet_round(*inputs, pack, slots, interpret=True)
-        assert ot.launches[slots] == before + 1
-        _agree(t_k, i_k, t_p, i_p)
+        o = torch.where(alive[:, None], o, bt.DEAD_ORIGIN)
+        d = torch.where(alive[:, None], d, 1.0)
+        r0 = ot.round0(o, d, tmax, w_lo, w_hi, sa.cl_valid, pack,
+                       interpret=True)
+        for mode in ("closest", "any") if slots == 4 else (None,):
+            before = ot.launches[slots]
+            if slots == 1:
+                got = ot.round0(o, d, tmax, w_lo, w_hi, sa.cl_valid, pack)
+                want = r0
+            else:
+                got = ot.round1(o, d, tmax, *r0, pack, mode)
+                want = ot.round1(o, d, tmax, *r0, pack, mode,
+                                 interpret=True)
+            assert ot.launches[slots] == before + 1
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_octet_rounds_stage_boxes_in_chunks(scene):
+    """More clusters than one shared-memory stage of round 0 holds (4,096):
+    the scene's clusters repeated past 4,200, both rounds still equal to
+    their twins."""
+    sa, static, _ = scene
+    prep, (w_lo, w_hi) = prepare_frame(sa, static,
+                                       EngineConfig(accel="on"))
+    pack = prep.pallas_pack
+    real = pack.shape[0] - 1
+    reps = 4200 // real + 1
+    pack = torch.cat([pack[:real]] * reps + [pack[-1:]])
+    boxes = (w_lo[:real].repeat(reps, 1).contiguous(),
+             w_hi[:real].repeat(reps, 1).contiguous())
+    cl_ok = sa.cl_valid[:real].repeat(reps)
+    for o, d, alive in _batches(sa, 1024):
+        tmax = torch.where(alive, INF, -1.0)
+        o = torch.where(alive[:, None], o, bt.DEAD_ORIGIN)
+        d = torch.where(alive[:, None], d, 1.0)
+        r0 = ot.round0(o, d, tmax, *boxes, cl_ok, pack, interpret=True)
+        pairs = [(ot.round0(o, d, tmax, *boxes, cl_ok, pack), r0)]
+        for mode in ("closest", "any"):
+            pairs.append((ot.round1(o, d, tmax, *r0, pack, mode),
+                          ot.round1(o, d, tmax, *r0, pack, mode,
+                                    interpret=True)))
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_octet_bench_variants_match_twins(scene):
@@ -163,7 +196,7 @@ def test_render_through_kernel_matches_twin(scene):
 
 
 def test_octet_render_through_kernels_matches_block_walk(scene):
-    """pallas_algo="octet" through the round kernel (and the block walk
+    """pallas_algo="octet" through the round kernels (and the block walk
     as its fallback) against the default block walk."""
     sa, static, cfg = scene
     ot.reset_counts()

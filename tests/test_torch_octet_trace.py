@@ -2,15 +2,17 @@
 against the JAX package.
 
 ``octet_entries`` and the round twin (``rustray_tpu_torch.ops.octet_trace.
-_round_twin``, what a round runs on CPU tensors) are held against their
-JAX counterparts, the round against the Pallas kernel in interpret mode
-(``_run_round(interpret=True)``) on the same descriptors, slots 1 and 4.
-A spray of rays that cross many clusters makes octets overflow round 1,
-so the block-walk fallback runs; the whole path is then held against the
-JAX ``trace_tris_octets(interpret=True)`` and the dense scan.  Thresholds
-of tests/test_accel.py: found masks at least 99.9% equal and the selected
-triangle's t allclose at rtol=1e-4, atol=1e-5.  The CUDA kernel is held
-against the twin by tests/test_torch_cuda.py and chip_smoke.py.
+_round_twin``, the part of both rounds' twins that runs the slab tests)
+are held against their JAX counterparts, the round against the Pallas
+kernel in interpret mode (``_run_round(interpret=True)``) on the same
+descriptors, slots 1 and 4.  A spray of rays that cross many clusters
+makes octets overflow round 1, so the block-walk fallback runs; the whole
+path is then held against the JAX ``trace_tris_octets(interpret=True)``
+and the dense scan.  Thresholds of tests/test_accel.py: found masks at
+least 99.9% equal and the selected triangle's t allclose at rtol=1e-4,
+atol=1e-5.  The fused rounds are held against the JAX chain and their
+kernel decomposition by tests/test_torch_octet_fused.py, the CUDA kernels
+against the twins by tests/test_torch_cuda.py and chip_smoke.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -90,8 +92,8 @@ def test_round_twin_matches_jax_kernel(accel, slots):  # noqa: F811
     t_j, i_j = np.asarray(t_j), np.asarray(i_j)
     ot.reset_counts()
     t_p, i_p = ot._run_round(_t(rays), accel["prep_t"].pallas_pack,
-                             _t(desc), slots, dummy, False)
-    assert ot.rounds[slots] == 1 and ot.launches[slots] == 0
+                             _t(desc), slots, dummy)
+    assert ot.launches == {1: 0, 4: 0}
     t_p, i_p = t_p.numpy(), i_p.numpy()
     assert t_p.shape == (256,)
     f_j, f_p = t_j < 3e38, t_p < INF
@@ -145,10 +147,16 @@ def test_fallback_path_matches_jax_and_dense(accel, mode):  # noqa: F811
 
 
 def test_round_refuses_other_devices(accel):  # noqa: F811
-    """No silent fallback: a tensor on neither the CPU nor CUDA raises."""
+    """No silent fallback: a tensor on neither the CPU nor CUDA raises, in
+    either round."""
+    m = torch.zeros((64, 3), device="meta")
+    tm = torch.zeros((64,), device="meta")
+    pack = accel["prep_t"].pallas_pack.to("meta")
+    boxes = [b.to("meta") for b in accel["boxes_t"]]
+    cl_ok = torch.ones((boxes[0].shape[0],), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        ot.octet_round(torch.zeros(1, dtype=torch.int32, device="meta"),
-                       torch.zeros((1024, 8), device="meta"),
-                       torch.zeros((1, 128), dtype=torch.int32,
-                                   device="meta"),
-                       accel["prep_t"].pallas_pack.to("meta"), 1)
+        ot.round0(m, m, tm, *boxes, cl_ok, pack)
+    e = torch.zeros((8, boxes[0].shape[0]), device="meta")
+    c0 = torch.zeros((8,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ot.round1(m, m, tm, e, c0, tm, c0.repeat(8), pack, "closest")
