@@ -8,26 +8,40 @@ octet's exact (8, cpad) slab test and then:
 - ``v1``: nothing more (slab test only; writes INF / 0);
 - ``v2``, ``v2u``, ``v2u8``: intersects clusters 0..15 by index, in a loop
   unrolled 1, 16 and 8 times;
-- ``v3``: also takes and masks the entry row's argmin at each of the 16
-  steps, but still intersects cluster ``step``;
-- ``v4``: intersects the argmin cluster itself.
+- ``v3``: also takes the entry row's 16 argmin-and-mask passes, but still
+  intersects cluster ``step``;
+- ``v4``: intersects the clusters those passes chose.
 
 The kernel is ``csrc/octet_bench.cu`` (one template, the variant and the
-unroll factor as its parameters); :func:`_bench_twin` is its plain torch
-version with the same contract.  The bench prints, per variant, the
-kernel's ms (CUDA events) against the twin's ms.
+unroll factor as its parameters; one warp per octet); :func:`_bench_twin`
+is its plain torch version with the same contract, and
+:func:`_bench_lanes` the kernel's warp and lane decomposition in torch.
+The bench checks every variant's kernel against its twin bit for bit (t
+and idx) and prints, per variant, the kernel's ms (CUDA events) against
+the twin's ms and its bound.
 
 Usage (from the repository root, on a machine with a CUDA card):
 
-    python -m rustray_tpu_torch.tools.octet_kernel_bench [waves.npz]
+    python -m rustray_tpu_torch.tools.octet_kernel_bench [waves.npz] \
+        [--old OLD_OCTET_BENCH_CU]
 
 Without the .npz (default ``rustray_tpu_torch/_build/waves.npz``) it
-captures the wavefront first.
+captures the wavefront first.  Given ``--old``, the path of an earlier
+``octet_bench.cu`` with the same C interface ``rr_octet_bench``, it builds
+that source with the same nvcc flags, checks it against the twin too and
+times both designs in turns (old, new, new, old; 5 launches each).  It
+ends with round 0 of the octet rounds (``ops/octet_trace.round0``) timed
+on the same sorted rays, beside v1 scaled by C / cpad: round 0 is v1's
+entry pass plus the e write, the argmin and slab c0.  Each result is one
+JSON line.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -40,6 +54,11 @@ _BIG = 3.0e37
 VARIANTS = ("v1", "v2", "v2u", "v2u8", "v3", "v4")
 _CODE = {v: i + 1 for i, v in enumerate(VARIANTS)}
 _VISITS = 16
+_LANES = 32
+# FP32 operations of one ray x cluster entry: 6 products, 6 differences,
+# 6 min/max per axis, 6 folds into tn and tf, the clamp, 2 comparisons,
+# the octet minimum
+ENTRY_OPS = 28
 
 # kernel launches per variant; only the launch in _bench_cuda counts
 launches = {v: 0 for v in VARIANTS}
@@ -110,23 +129,20 @@ def probe_inputs(sa, boxes, n: int, seed: int = 0):
     return nlive, rays, aabb_table(w_lo, w_hi, cl_ok)
 
 
-def _bench_twin(nlive, rays, aabb, pack, variant: str):
-    """Plain torch version of the bench kernel with its contract (see
-    csrc/octet_bench.cu).  Returns (t (n,) — INF on miss, idx (n,) int32)."""
-    n = rays.shape[0]
-    no = n // 8
-    cpad = aabb.shape[1]
-    n_pack, _, K = pack.shape
-    dev = rays.device
-    r = rays.reshape(no, 8, 8)
+def _entries(r, aabb):
+    """Entry rows e (No, cpad) of octet rays r (No, 8, 8): per ray and
+    cluster the exact slab entry (tn from -BIG and tf from BIG folded over
+    the axes, clamped at 0; INF unless tf >= entry <= t_max), the minimum
+    over the octet's 8 rays."""
     o3, d3, tmax = r[..., 0:3], r[..., 3:6], r[..., 6:7]      # (No, 8, .)
     eps = 1e-30
     sd = torch.where(torch.abs(d3) > eps, d3,
                      torch.where(d3 >= 0, eps, -eps))
     inv = 1.0 / sd
     oinv = o3 * inv
-    tn = torch.full((no, 8, cpad), -_BIG, device=dev)
-    tf = torch.full((no, 8, cpad), _BIG, device=dev)
+    shape = (r.shape[0], 8, aabb.shape[1])
+    tn = torch.full(shape, -_BIG, device=r.device)
+    tf = torch.full(shape, _BIG, device=r.device)
     for a in range(3):
         ia, oa = inv[..., a:a + 1], oinv[..., a:a + 1]
         t0 = aabb[a] * ia - oa
@@ -135,37 +151,155 @@ def _bench_twin(nlive, rays, aabb, pack, variant: str):
         tf = torch.minimum(tf, torch.maximum(t0, t1))
     entry = torch.clamp(tn, min=0.0)
     ok = (tf >= entry) & (entry <= tmax)
-    e = torch.where(ok, entry, INF).amin(dim=1)               # (No, cpad)
+    return torch.where(ok, entry, INF).amin(dim=1)
 
+
+def _picks(e):
+    """The 16 argmin-and-mask passes over e (No, cpad): each takes the
+    lowest index of the row's minimum and sets that entry to INF.
+    Returns (No, 16) int64."""
+    cpad = e.shape[1]
+    lane_c = torch.arange(cpad, device=e.device)
+    out = []
+    for _ in range(_VISITS):
+        m = e.amin(dim=1, keepdim=True)
+        cv = torch.where(e == m, lane_c, cpad).amin(dim=1)
+        e = torch.where(lane_c == cv[:, None], INF, e)
+        out.append(cv)
+    return torch.stack(out, dim=1)
+
+
+def _columns(variant, picks, no, cpad, n_pack, dev):
+    """(No, 16) clusters each visit reads: 0..15 for v2/v3, the picks
+    clamped to cpad - 1 for v4; past the pack's last row a dynamic index
+    clamps, as in the JAX interpreter."""
+    if variant == "v4":
+        cols = torch.clamp(picks, max=cpad - 1)
+    else:
+        cols = torch.arange(_VISITS, device=dev).expand(no, _VISITS)
+    return torch.clamp(cols, max=n_pack - 1)
+
+
+def _bench_twin(nlive, rays, aabb, pack, variant: str):
+    """Plain torch version of the bench kernel with its contract (see
+    csrc/octet_bench.cu).  Returns (t (n,) — INF on miss, idx (n,) int32)."""
+    no = rays.shape[0] // 8
+    cpad, (n_pack, _, K) = aabb.shape[1], pack.shape
+    dev = rays.device
+    r = rays.reshape(no, 8, 8)
+    e = _entries(r, aabb)
     bt = torch.full((no, 8), INF, device=dev)
     bi = torch.zeros((no, 8), dtype=torch.int32, device=dev)
     if variant != "v1":
-        lane_c = torch.arange(cpad, device=dev)
+        picks = _picks(e) if variant in ("v3", "v4") else None
+        cols = _columns(variant, picks, no, cpad, n_pack, dev)
         for jg in range(_VISITS):
-            c = torch.full((no,), jg, dtype=torch.long, device=dev)
-            if variant in ("v3", "v4"):
-                m = e.amin(dim=1, keepdim=True)
-                cv = torch.where(e == m, lane_c, cpad).amin(dim=1)
-                e = torch.where(lane_c == cv[:, None], INF, e)
-                if variant == "v4":
-                    c = torch.clamp(cv, max=cpad - 1)
-            # a dynamic index past the pack clamps, as in the JAX
-            # interpreter
-            c = torch.clamp(c, max=n_pack - 1)
+            c = cols[:, jg]
             tmin, within = slab_test(r, pack[c])              # (No, 8)
-            gidx = c[:, None].to(torch.int32) * K + within
             better = tmin < bt
             bt = torch.where(better, tmin, bt)
-            bi = torch.where(better, gidx, bi)
+            bi = torch.where(better, c[:, None].to(torch.int32) * K + within,
+                             bi)
     live = (torch.arange(no, device=dev) < nlive[0])[:, None]
     return (torch.where(live, bt, INF).reshape(-1),
             torch.where(live, bi, 0).reshape(-1))
 
 
-def _bench_cuda(nlive, rays, aabb, pack, variant: str):
-    """Launch the bench kernel (csrc/octet_bench.cu) on the current
-    stream.  Returns (t (n,), idx (n,) int32)."""
-    from ..build import load_kernel_lib
+# --------------------------------------------------------------------------
+# The kernel's decomposition in torch (for the tests)
+# --------------------------------------------------------------------------
+
+def _picks_lanes(e):
+    """The 16 passes as the warp takes them (csrc/octet_bench.cu::
+    Candidates and select16): lane l offers clusters l, l + 32, ... in
+    order; each keeps its first 16 (entry, id) below INF by strict
+    insertion (an entry is at most BIG or INF); 16 butterfly minima over
+    the lists' heads, each popped by its owner, while entries below INF
+    last; every later pass takes cluster 0, as the twin's row is INF
+    throughout by then.  Same result as :func:`_picks`."""
+    from ..ops.octet_trace import _lane_columns, _lex_min_lanes
+    no, dev = e.shape[0], e.device
+    v, ids = _lane_columns(e)
+    tv = torch.full((no, _LANES, _VISITS), INF, device=dev)
+    ti = torch.zeros((no, _LANES, _VISITS), dtype=torch.int32, device=dev)
+    q = torch.arange(_VISITS, device=dev)
+    for j in range(v.shape[1]):
+        x, c = v[:, j], ids[j]
+        ins = x < tv[..., -1]             # the padding past cpad is INF
+        # strict insertion: x goes after every entry it is not below
+        p = (tv <= x[..., None]).sum(dim=-1, keepdim=True)
+        prev_v = torch.cat([tv[..., :1], tv[..., :-1]], dim=-1)
+        prev_i = torch.cat([ti[..., :1], ti[..., :-1]], dim=-1)
+        new_v = torch.where(q < p, tv, torch.where(q == p, x[..., None],
+                                                   prev_v))
+        new_i = torch.where(q < p, ti, torch.where(q == p, c[:, None],
+                                                   prev_i))
+        tv = torch.where(ins[..., None], new_v, tv)
+        ti = torch.where(ins[..., None], new_i, ti)
+    picks = []
+    going = torch.ones((no,), dtype=torch.bool, device=dev)
+    for _ in range(_VISITS):
+        wv, wi = _lex_min_lanes(tv[..., 0], ti[..., 0])
+        going = going & (wv < INF)
+        picks.append(torch.where(going, wi, 0))
+        pop = (going[:, None] & (tv[..., 0] == wv[:, None])
+               & (ti[..., 0] == wi[:, None]))[..., None]
+        tv = torch.where(pop, torch.cat(
+            [tv[..., 1:], torch.full_like(tv[..., :1], INF)], dim=-1), tv)
+        ti = torch.where(pop, torch.cat(
+            [ti[..., 1:], torch.zeros_like(ti[..., :1])], dim=-1), ti)
+    return torch.stack(picks, dim=1).to(torch.int64)
+
+
+def _bench_lanes(nlive, rays, aabb, pack, variant: str):
+    """The bench partitioned as csrc/octet_bench.cu runs it: the entry
+    rows, the selection through the lanes' candidate lists
+    (:func:`_picks_lanes`); in each visit lane l tests triangles l + 32 q
+    (q = 0..3) against the 8 rays and keeps per ray its nearest hit over
+    all visits with the key visit * K + triangle (strict '<'); after the
+    last visit one (t, key) butterfly per ray.  Same outputs as
+    :func:`_bench_twin`; K must be 128."""
+    from ..ops.octet_trace import _lex_min_lanes
+    no = rays.shape[0] // 8
+    cpad, (n_pack, _, K) = aabb.shape[1], pack.shape
+    assert K == 4 * _LANES
+    dev = rays.device
+    r = rays.reshape(no, 8, 8)
+    e = _entries(r, aabb)
+    bt = torch.full((no, 8), INF, device=dev)
+    bi = torch.zeros((no, 8), dtype=torch.int32, device=dev)
+    if variant != "v1":
+        picks = _picks_lanes(e) if variant in ("v3", "v4") else None
+        cols = _columns(variant, picks, no, cpad, n_pack, dev)
+        lane = torch.arange(_LANES, dtype=torch.int32, device=dev)
+        lt = torch.full((no, 8, _LANES), INF, device=dev)
+        lk = torch.zeros((no, 8, _LANES), dtype=torch.int32, device=dev)
+        for jg in range(_VISITS):
+            # every (ray, triangle) test's t: each triangle a slab of its own
+            tri = pack[cols[:, jg]].permute(0, 2, 1).reshape(no * K, 16, 1)
+            t_all, _ = slab_test(r.repeat_interleave(K, dim=0), tri)
+            t_all = t_all.reshape(no, K, 8).permute(0, 2, 1)   # (No, 8, K)
+            for q in range(4):
+                t = t_all[..., q * _LANES:(q + 1) * _LANES]
+                take = t < lt
+                lt = torch.where(take, t, lt)
+                lk = torch.where(take, jg * K + q * _LANES + lane, lk)
+        t, key = _lex_min_lanes(lt, lk)                        # (No, 8)
+        cid = cols.gather(1, (key // K).long()).to(torch.int32)
+        bt = t
+        bi = torch.where(t < INF, cid * K + key % K, 0)
+    live = (torch.arange(no, device=dev) < nlive[0])[:, None]
+    return (torch.where(live, bt, INF).reshape(-1),
+            torch.where(live, bi, 0).reshape(-1))
+
+
+# --------------------------------------------------------------------------
+# The kernel
+# --------------------------------------------------------------------------
+
+def _launch(lib, nlive, rays, aabb, pack, variant: str):
+    """One launch of ``rr_octet_bench`` from ``lib`` on the current stream,
+    after checking the inputs.  Returns (t (n,), idx (n,) int32)."""
     n = rays.shape[0]
     cpad = aabb.shape[1]
     n_pack, _, K = pack.shape
@@ -182,7 +316,12 @@ def _bench_cuda(nlive, rays, aabb, pack, variant: str):
                              f"{tuple(x.shape)} on {x.device}")
     if n % 8:
         raise ValueError("octet bench: the ray count must be a multiple of 8")
-    fn = load_kernel_lib("octet_bench").rr_octet_bench
+    if K != 128:
+        raise ValueError(f"octet bench: the kernel takes slabs of 128 "
+                         f"triangles; got K={K}")
+    if rays.data_ptr() % 16 or pack.data_ptr() % 16:
+        raise ValueError("octet bench: rays and pack must be 16-byte aligned")
+    fn = lib.rr_octet_bench
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -196,8 +335,17 @@ def _bench_cuda(nlive, rays, aabb, pack, variant: str):
     if err != 0:
         raise RuntimeError(f"octet bench kernel launch failed: CUDA error "
                            f"{err}")
-    launches[variant] += 1
     return t_out, idx_out
+
+
+def _bench_cuda(nlive, rays, aabb, pack, variant: str):
+    """Launch the bench kernel (csrc/octet_bench.cu) on the current
+    stream.  Returns (t (n,), idx (n,) int32)."""
+    from ..build import load_kernel_lib
+    out = _launch(load_kernel_lib("octet_bench"), nlive, rays, aabb, pack,
+                  variant)
+    launches[variant] += 1
+    return out
 
 
 def bench_kernel(nlive, rays, aabb, pack, variant: str,
@@ -230,23 +378,19 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def check(nlive, rays, aabb, pack, variant: str):
-    """One variant's kernel against its twin on the same inputs.  Returns
-    dict(found, hits, max_abs_err); raises if they disagree (found masks
-    under 99.9% equal, or the t of rays both find beyond rtol 1e-4,
-    atol 1e-5)."""
-    t_k, _ = bench_kernel(nlive, rays, aabb, pack, variant)
-    t_p, _ = bench_kernel(nlive, rays, aabb, pack, variant, interpret=True)
+    """One variant's kernel against its twin on the same inputs, bit for
+    bit: t and idx equal (torch.equal); raises otherwise.  Returns
+    dict(found, hits, max_abs_err): the share of equal found masks (1.0),
+    the kernel's hits and its max |dt| (0.0)."""
+    got = bench_kernel(nlive, rays, aabb, pack, variant)
+    want = bench_kernel(nlive, rays, aabb, pack, variant, interpret=True)
     torch.cuda.synchronize()
-    f_k, f_p = t_k < INF, t_p < INF
-    found = (f_k == f_p).float().mean().item()
-    both = f_k & f_p
-    err = (t_k - t_p).abs()[both].max().item() if both.any() else 0.0
-    if found < 0.999 or not torch.allclose(t_k[both], t_p[both], rtol=1e-4,
-                                           atol=1e-5):
-        raise RuntimeError(f"octet bench {variant}: kernel and twin disagree "
-                           f"(found masks equal on {found:.5f}, max|dt| "
-                           f"{err:.3g})")
-    return dict(found=found, hits=int(f_k.sum()), max_abs_err=err)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError(
+            f"octet bench {variant}: kernel and twin differ in "
+            f"{int((got[0] != want[0]).sum())} t and "
+            f"{int((got[1] != want[1]).sum())} idx entries")
+    return dict(found=1.0, hits=int((got[0] < INF).sum()), max_abs_err=0.0)
 
 
 def time_variants(nlive, rays, aabb, pack, iters: int = 5):
@@ -255,34 +399,109 @@ def time_variants(nlive, rays, aabb, pack, iters: int = 5):
                        iters) for v in VARIANTS}
 
 
+def bench_work(nlive, rays, aabb, pack, variant: str):
+    """What a variant needs on these inputs: ENTRY_OPS per ray x cluster
+    entry of the live octets; past v1, 16 visits of 8 rays x K triangles
+    (31 FP32 operations a test); in v3/v4 one comparison per entry for the
+    selection.  Bytes: the live octets' rays, the box table's 6 rows, the
+    visited slabs' 12 rows once (none in v1; clusters 0..15 in v2/v3; the
+    distinct chosen clusters of the live octets in v4), t and idx out.
+    Returns (tests, bound_ms, bound_by)."""
+    from .walk_compare import FLOPS_PER_TEST, bound
+    n = rays.shape[0]
+    octets = max(0, min(int(nlive[0]), n // 8))
+    cpad = aabb.shape[1]
+    n_pack, _, K = pack.shape
+    tests = 0 if variant == "v1" else octets * _VISITS * 8 * K
+    flops = (octets * 8 * cpad * ENTRY_OPS + tests * FLOPS_PER_TEST
+             + (octets * cpad if variant in ("v3", "v4") else 0))
+    if variant == "v1":
+        slabs = 0
+    elif variant == "v4":
+        r = rays[:octets * 8].reshape(octets, 8, 8)
+        cols = _columns("v4", _picks(_entries(r, aabb)), octets, cpad,
+                        n_pack, rays.device)
+        slabs = int(torch.unique(cols).numel())
+    else:
+        slabs = min(_VISITS, n_pack)
+    nbytes = octets * 8 * 32 + 6 * cpad * 4 + slabs * 12 * K * 4 + n * 8
+    return (tests, *bound(flops, nbytes))
+
+
 def main(argv=None) -> int:
     from ..scene_arrays import to_torch
     from ..render.wavefront import prepare_frame
     from ..config import EngineConfig
+    from ..ops import octet_trace as ot
     from .capture_waves import DEFAULT_OUT, capture, load_bench_scene
-    argv = sys.argv[1:] if argv is None else argv
+    from .walk_compare import build_source
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("waves", nargs="?", default=DEFAULT_OUT)
+    ap.add_argument("--old", default=None,
+                    help="an earlier octet_bench.cu to time in turns")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("octet_kernel_bench: needs a CUDA card", file=sys.stderr)
         return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    old = build_source(args.old, "octet_bench_old") if args.old else None
     scene = load_bench_scene(1280, 720)
     sa, static = to_torch(*scene.compile(), "cuda")
     cfg = scene.raytracing_config
     cfg.samples = 1
-    path = argv[0] if argv else DEFAULT_OUT
-    if os.path.exists(path):
-        waves = dict(np.load(path))
+    if os.path.exists(args.waves):
+        waves = dict(np.load(args.waves))
     else:
         waves = capture(sa, static, cfg)
     prep, boxes = prepare_frame(sa, static, EngineConfig(chunk_pixels=32768))
     nlive, rays, aabb = bench_inputs(waves, sa, boxes)
     pack = prep.pallas_pack
-    print(f"live octets: {int(nlive[0])} of {rays.shape[0] // 8}")
-    for v, ms in time_variants(nlive, rays, aabb, pack).items():
-        row = check(nlive, rays, aabb, pack, v)
-        plain = cuda_ms(lambda: bench_kernel(nlive, rays, aabb, pack, v,
-                                             interpret=True), 2)
-        print(f"{v}: kernel {ms:.3f} ms, twin {plain:.3f} ms, found masks "
-              f"equal {row['found']:.5f}, max|dt| {row['max_abs_err']:.3g}")
+    cpad = aabb.shape[1]
+    print(json.dumps(dict(live_octets=int(nlive[0]),
+                          octets=rays.shape[0] // 8, cpad=cpad)))
+    v1_ms = None
+    for v in VARIANTS:
+        row = dict(variant=v, **check(nlive, rays, aabb, pack, v))
+        row["tests"], row["bound_ms"], row["bound_by"] = bench_work(
+            nlive, rays, aabb, pack, v)
+        row["twin_ms"] = cuda_ms(lambda: bench_kernel(
+            nlive, rays, aabb, pack, v, interpret=True), 2)
+
+        def run_new():
+            bench_kernel(nlive, rays, aabb, pack, v)
+        if old is not None:
+            want = bench_kernel(nlive, rays, aabb, pack, v, interpret=True)
+            got = _launch(old, nlive, rays, aabb, pack, v)
+            torch.cuda.synchronize()
+            row["old_equal_twin"] = bool(torch.equal(got[0], want[0])
+                                         and torch.equal(got[1], want[1]))
+
+            def run_old():
+                _launch(old, nlive, rays, aabb, pack, v)
+            o1 = cuda_ms(run_old, 5)
+            n1 = cuda_ms(run_new, 5)
+            n2 = cuda_ms(run_new, 5)
+            o2 = cuda_ms(run_old, 5)
+            row.update(old_ms=[o1, o2], new_ms=[n1, n2])
+        else:
+            row["new_ms"] = [cuda_ms(run_new, 5)]
+        ms = sum(row["new_ms"]) / len(row["new_ms"])
+        row["share_of_bound"] = row["bound_ms"] / ms
+        if v == "v1":
+            v1_ms = ms
+        print(json.dumps(row))
+    # round 0 of the octet rounds on the same sorted rays: the entry pass
+    # over C clusters, the e write, the argmin and slab c0
+    C = boxes[0].shape[0]
+    cl_ok = sa.cl_valid & sa.inst_visible[sa.cl_inst.long()]
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    tmax = rays[:, 6].contiguous()
+    r0_ms = cuda_ms(lambda: ot.round0(o, d, tmax, *boxes, cl_ok, pack), 5)
+    v1_c = v1_ms * C / cpad
+    print(json.dumps(dict(round0_ms=r0_ms, clusters=C, v1_ms=v1_ms,
+                          v1_scaled_ms=v1_c, round0_rest_ms=r0_ms - v1_c)))
     return 0
 
 

@@ -11,7 +11,8 @@ JAX or flax:
 Thresholds of tests/test_accel.py: found masks at least 99.9% equal and t
 allclose at rtol=1e-4, atol=1e-5; renders: color within rtol=2e-3,
 atol=2e-3 on at least 99.5% of pixels and object ids equal on at least
-99.5%.  The octet rounds and the walk are held to their twins exactly.
+99.5%.  The octet rounds, the walk and the octet bench are held to their
+twins exactly.
 """
 import numpy as np
 import pytest
@@ -157,7 +158,8 @@ def test_octet_rounds_stage_boxes_in_chunks(scene):
 
 def test_octet_bench_variants_match_twins(scene):
     """Every K4 variant against its twin on the probe rays (every variant
-    finds hits there) with the last 28 of 128 octets past nlive."""
+    finds hits there) with the last 28 of 128 octets past nlive, exactly:
+    t and idx equal."""
     from rustray_tpu_torch.tools import octet_kernel_bench as okb
     sa, static, _ = scene
     prep, boxes = prepare_frame(sa, static, EngineConfig(accel="on"))
@@ -170,9 +172,28 @@ def test_octet_bench_variants_match_twins(scene):
         t_p, i_p = okb.bench_kernel(nlive, rays_, aabb, prep.pallas_pack, v,
                                     interpret=True)
         assert okb.launches[v] == before + 1
-        _agree(t_k, i_k, t_p, i_p)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), v
         assert v == "v1" or bool((t_k < INF).any()), v
         assert bool((t_k[800:] >= INF).all())
+
+
+def test_octet_bench_stages_boxes_in_chunks(scene):
+    """A box table wider than one shared-memory stage (4,096 clusters):
+    the table's columns repeated to 4,480, every variant still equal to
+    its twin."""
+    from rustray_tpu_torch.tools import octet_kernel_bench as okb
+    sa, static, _ = scene
+    prep, boxes = prepare_frame(sa, static, EngineConfig(accel="on"))
+    nlive, rays_, aabb = okb.probe_inputs(sa, boxes, 1024)
+    reps = -(-4480 // aabb.shape[1])
+    aabb = aabb.repeat(1, reps)[:, :4480].contiguous()
+    for v in okb.VARIANTS:
+        t_k, i_k = okb.bench_kernel(nlive, rays_, aabb, prep.pallas_pack, v)
+        t_p, i_p = okb.bench_kernel(nlive, rays_, aabb, prep.pallas_pack, v,
+                                    interpret=True)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_p) and torch.equal(i_k, i_p), v
 
 
 def test_render_through_kernel_matches_twin(scene):

@@ -6,8 +6,18 @@ the JAX bench kernel, built here from ``tools/octet_kernel_bench.
 make_kernel`` with ``build``'s grid spec and run in interpret mode, on 64
 rays (8 octets, 6 of them live).  Thresholds of tests/test_accel.py: found
 masks at least 99.9% equal and t allclose at rtol=1e-4, atol=1e-5; the
-winning triangle index must match too.  The CUDA kernel is held against
-the twin by tests/test_torch_cuda.py and chip_smoke.py.
+winning triangle index must match too.
+
+The kernel's warp and lane decomposition (``_bench_lanes``: lanes striding
+the clusters with their own candidate lists, butterfly minima for the 16
+passes; lane l testing triangles l + 32 q of every slab, keeping each
+ray's nearest over the visits, and one (t, key) butterfly per ray) is held
+bit for bit against the twin in every variant, on inputs built with ties:
+equal entries within a lane, across lanes and across the first 16; rows
+of INF and rows with 1-15 entries below INF; padded clusters entering at
+0; equal t within a lane, across lanes and across visits; octets past
+nlive.  The CUDA kernel is held against the twin bit for bit by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 import jax
 import jax.numpy as jnp
@@ -164,3 +174,138 @@ def test_probe_inputs_hit_in_every_variant(accel):  # noqa: F811
         t, _ = okb.bench_kernel(nlive, rays, aabb,
                                 accel["prep_t"].pallas_pack, v)
         assert bool((t < INF).any()) == (v != "v1"), v
+
+
+def _same(got, want):
+    """Bit for bit: equal tensors of equal dtype (t compared as values)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype)
+        assert torch.equal(g, w), (g, w)
+
+
+def _tie_pack(acc):
+    """The test scene's pack with ties: each slab's triangle 4l+1 equal to
+    4l (l < 16), triangles 64-127 equal to 0-63 and slab 1 equal to slab
+    0, so every hit ties across lanes (4l and 4l + 1) and within a lane
+    (k and k + 64, both lane k mod 32's), and rays hitting
+    slab 0 tie across the visits to clusters 0 and 1."""
+    pack = acc["prep_t"].pallas_pack.clone()
+    assert pack.shape[0] >= 16        # v2-v4 read clusters 0..15
+    real = pack.shape[0] - 1
+    pack[:real, :, 1:64:4] = pack[:real, :, 0:64:4]
+    pack[:real, :, 64:] = pack[:real, :, :64]
+    pack[1] = pack[0]
+    return pack
+
+
+def _scene_inputs(acc):
+    """Probe rays from the centres of clusters 0..15 (32 octets, the last 4
+    past nlive; octet 3 dead, half of octet 5 dead) over the scene's box
+    table with its padding, and box 1 and 32 equal to box 0 and boxes
+    40-71 equal to box 2: equal entries across lanes, within lane 0 and
+    across the first 16 of a row."""
+    sa = to_torch(acc["sa"], acc["static"], "cpu")[0]
+    _, rays, aabb = okb.probe_inputs(sa, acc["boxes_t"], 256)
+    rays[24:32, 6] = -1.0
+    rays[40:48:2, 6] = -1.0
+    aabb[:, 1] = aabb[:, 0]
+    aabb[:, 32] = aabb[:, 0]
+    aabb[:, 40:72] = aabb[:, 2:3]
+    nlive = torch.tensor([28], dtype=torch.int32)
+    return nlive, rays, aabb, _tie_pack(acc)
+
+
+def _built_inputs(acc, seed=5):
+    """40 octets along +x (octet k from (20k, 0, 0), directions within
+    1e-3 of +x; the last 4 past nlive) over 512 unpadded boxes.  Octet k
+    owns k % 18 boxes of y, z in [-1, 1] at x offsets 0, 1, 2 or 3 (equal
+    offsets give equal entries, offset 0 contains the origin), on random
+    columns; the other columns sit at y = 500 and are never entered.
+    Octets with t_max 4 reach only their own boxes, so their rows hold 0
+    to 17 entries below INF; every fifth octet has t_max INF and enters
+    the boxes of all the octets after it; octets 18 and 19 are dead."""
+    rng = np.random.default_rng(seed)
+    no, cpad = 40, 512
+    lo = np.tile(np.array([[0.0], [500.0], [500.0]], np.float32), cpad)
+    hi = lo + 1.0
+    cols = rng.permutation(cpad)
+    pos = 0
+    for k in range(no):
+        for _ in range(k % 18):
+            c, a = cols[pos % cpad], rng.integers(0, 4)
+            pos += 1
+            lo[:, c] = (20.0 * k + a - 0.25, -1.0, -1.0)
+            hi[:, c] = (20.0 * k + a + 0.25, 1.0, 1.0)
+    aabb = np.concatenate([lo, hi, np.zeros((2, cpad), np.float32)])
+    o = np.zeros((no * 8, 3), np.float32)
+    o[:, 0] = 20.0 * np.repeat(np.arange(no), 8)
+    o[:, 1:] = rng.uniform(-0.01, 0.01, (no * 8, 2))
+    d = np.concatenate([np.ones((no * 8, 1)),
+                        rng.uniform(-1e-3, 1e-3, (no * 8, 2))], axis=1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.where(np.repeat(np.arange(no) % 5 == 0, 8), 3e38, 4.0)
+    tmax[np.repeat(np.isin(np.arange(no), (18, 19)), 8)] = -1.0
+    rays = np.concatenate([o, d, tmax[:, None].astype(np.float32),
+                           np.zeros((no * 8, 1), np.float32)], axis=1)
+    return (torch.tensor([36], dtype=torch.int32), _t(rays), _t(aabb),
+            _tie_pack(acc))
+
+
+def _inputs(acc, kind):
+    return _scene_inputs(acc) if kind == "scene" else _built_inputs(acc)
+
+
+@pytest.mark.parametrize("kind", ["scene", "built"])
+def test_bench_inputs_hold_the_ties(accel, kind):  # noqa: F811
+    """The tie-built inputs hold what they are built for, and the lanes'
+    16 passes equal the twin's on their entry rows."""
+    nlive, rays, aabb, pack = _inputs(accel, kind)
+    e = okb._entries(rays.reshape(-1, 8, 8), aabb)
+    assert torch.equal(okb._picks_lanes(e), okb._picks(e))
+    live = e[:int(nlive[0])]
+    finite = (live < INF).sum(dim=1)
+    assert (finite == 0).any()                          # rows of INF
+    lanes = torch.arange(e.shape[1]) % 32
+    same_lane = across = False
+    for row in live:
+        v, c = torch.unique(row[row < INF], return_counts=True)
+        for x in v[c > 1]:
+            ln = lanes[row == x]
+            same_lane |= bool(len(set(ln.tolist())) < len(ln))
+            across |= bool(len(set(ln.tolist())) > 1)
+    assert same_lane and across
+    if kind == "built":
+        assert set(range(1, 16)) <= set(finite.tolist())
+        assert (finite > 16).any()
+    else:
+        # the padding enters at 0, more than 16 times in every live row
+        assert (e[:, -1] == 0).sum() > 0 and (finite[finite > 0] > 16).all()
+
+
+@pytest.mark.parametrize("kind", ["scene", "built"])
+@pytest.mark.parametrize("variant", okb.VARIANTS)
+def test_bench_lanes_match_twin(accel, kind, variant):  # noqa: F811
+    """The kernel's decomposition against the twin, bit for bit."""
+    nlive, rays, aabb, pack = _inputs(accel, kind)
+    want = okb._bench_twin(nlive, rays, aabb, pack, variant)
+    _same(okb._bench_lanes(nlive, rays, aabb, pack, variant), want)
+    t = want[0]
+    assert (t[int(nlive[0]) * 8:] >= INF).all()
+    if kind == "scene" and variant != "v1":
+        assert (t < INF).sum() > 16, variant
+
+
+def test_pick_lanes_on_built_rows():
+    """The lanes' 16 passes against the twin's on entry rows of small
+    integers (ties everywhere), with rows holding 0 to 40 entries below
+    INF at random columns, and a row below INF throughout."""
+    rng = np.random.default_rng(11)
+    no, cpad = 82, 200
+    e = rng.integers(0, 5, (no, cpad)).astype(np.float32)
+    for k in range(no - 1):
+        keep = rng.choice(cpad, min(k // 2, cpad), replace=False)
+        row = np.full(cpad, 3e38, np.float32)
+        row[keep] = e[k, keep]
+        e[k] = row
+    e = _t(e)
+    _same((okb._picks_lanes(e),), (okb._picks(e),))
