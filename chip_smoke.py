@@ -31,7 +31,15 @@ Phases (each prints its result; any failure raises and exits non-zero):
   9. the octet kernel bench (K4): the port's capture of the middle chunk's
      level-3 closest wavefront, then every variant, timed, with its bound,
      and exactly against its twin (t and idx), on the wavefront and on
-     probe rays that hit, where the wavefront rarely does.
+     probe rays that hit, where the wavefront rarely does;
+ 10. the user's entry points: the CLI (``rustray_tpu_torch.cli.main``)
+     renders the 1280x720 bench frame at 1 spp on the card by default,
+     through K1, with a preview; its PNG and preview equal the session's
+     image; a 320x180 render interrupted by its checkpoint resumes into the
+     uninterrupted one bit for bit; a 320x180 frame through the XLA cluster
+     walk (plain torch on the card) against the K1 frame, both timed;
+     cavity + outline post-processing on the card against the CPU; and
+     RenderSession.pick on CUDA against CPU tensors.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -264,6 +272,139 @@ def compare_renders(tag, a, b):
     _check(frac >= 0.995 and oid >= 0.995, f"{tag}: renders differ")
 
 
+def entry_points(smi, bench_json, small, k_small, engine):
+    """Phase 10: the CLI frame, checkpoint/resume, the XLA cluster walk,
+    post-processing and picking; ``small`` is the 320x180 (sa, static,
+    cfg) of phase 5 and ``k_small`` its K1 frame."""
+    import dataclasses
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rustray_tpu_torch import PostProcessingConfig, cli, render
+    from rustray_tpu_torch.build import BUILD_DIR
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.render.post import run_post_processing
+    from rustray_tpu_torch.run import RenderSession
+
+    start = time.perf_counter()
+    # the CLI frame, on the default device, through K1
+    out_dir = os.path.join(BUILD_DIR, "cli")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sessions = []
+
+    class Recorded(RenderSession):
+        def init(self):
+            sessions.append(self)
+            super().init()
+
+    cli_session = cli.RenderSession
+    cli.RenderSession = Recorded
+    try:
+        torch.cuda.synchronize()
+        bt.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["cmd", bench_json, f"{WIDTH}x{HEIGHT}", "samples=1",
+                       "no-animation", f"out={out_dir}", "preview=8"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        cli.RenderSession = cli_session
+    launches = dict(bt.launches)
+    sess = sessions[0]
+    res = sess.result
+    per = res["device_rays"]
+    print(f"phase 10: CLI frame {WIDTH}x{HEIGHT} 1 spp on {sess.device} in "
+          f"{secs:.2f} s, scene load and compile included (the session's "
+          f"render {sess.stats.last_render_seconds:.3f} s) ({smi}): "
+          f"device_rays={per}, dropped={res['dropped_rays']}, K1 launches "
+          f"{launches}")
+    _check(rc == 0, f"the CLI returned {rc}")
+    _check(sess.device == "cuda", "the CLI did not default to the card")
+    _check(all(n > 0 for n in launches.values()),
+           f"a K1 mode never launched in the CLI frame: {launches}")
+    _check(res["dropped_rays"] == 0, "the CLI frame dropped rays")
+    _check(abs(per / RAYS_PER_SAMPLE - 1.0) <= 0.05,
+           f"CLI frame: device rays per sample {per} not within 5% of "
+           f"{RAYS_PER_SAMPLE}")
+    pngs = glob.glob(os.path.join(out_dir, "output_*.png"))
+    _check(len(pngs) == 1, f"the CLI wrote {len(pngs)} output PNGs")
+    for path in (pngs[0], os.path.join(out_dir, "preview.png")):
+        img = np.asarray(Image.open(path))
+        _check(np.array_equal(img, res["image"]),
+               f"{os.path.basename(path)} differs from the session's image")
+    print(f"phase 10: {os.path.basename(pngs[0])} and preview.png equal the "
+          f"session's image; device rays per sample "
+          f"{per / RAYS_PER_SAMPLE - 1.0:+.4%} from the JAX package's")
+
+    # checkpoint and resume on the card, 4 chunks
+    sa, static, cfg = small
+    ck_engine = dataclasses.replace(engine, chunk_pixels=16384)
+    ckpt = os.path.join(BUILD_DIR, "smoke.ckpt.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    full = render(sa, static, cfg, ck_engine)
+    render(sa, static, cfg, ck_engine, checkpoint_path=ckpt, max_chunks=1)
+    _check(os.path.exists(ckpt), "no checkpoint after the first chunk")
+    qf = float(np.load(ckpt)["queue_factor"])
+    resumed = render(sa, static, cfg, ck_engine, checkpoint_path=ckpt)
+    _check(not os.path.exists(ckpt), "the checkpoint outlived its frame")
+    for k in ("image", "color", "depth", "normal", "object_id",
+              "device_rays", "dropped_rays"):
+        _check(np.array_equal(resumed[k], full[k]),
+               f"checkpoint: the resumed frame's {k} differs")
+    print(f"phase 10: 320x180 in 4 chunks, cut after chunk 1 (queue factor "
+          f"{qf} there) and resumed: every AOV, device_rays and "
+          f"dropped_rays equal to the uninterrupted frame's")
+
+    # the XLA cluster walk against K1, in turns
+    xla = dataclasses.replace(engine, accel="on", pallas="off")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_out = render(sa, static, cfg, engine)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x_out = render(sa, static, cfg, xla)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _check(all(np.array_equal(k_out[k], k_small[k])
+               for k in ("color", "object_id", "device_rays")),
+           "the K1 frame differs from phase 5's")
+    print(f"phase 10: 320x180 1 spp, K1 {t1 - t0:.3f} s, XLA cluster walk "
+          f"{t2 - t1:.3f} s ({smi}); dropped {x_out['dropped_rays']}")
+    compare_renders("phase 10: 320x180 XLA walk vs K1", x_out, k_small)
+
+    # post-processing on the card against the CPU
+    post = PostProcessingConfig(cavity=True, outline=True)
+    aovs = (res["image"], res["normal"], res["depth"], res["object_id"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = run_post_processing(post, *aovs, device="cuda")
+    t1 = time.perf_counter()
+    on_cpu = run_post_processing(post, *aovs, device="cpu")
+    t2 = time.perf_counter()
+    step = np.abs(on_card.astype(np.int32) - on_cpu.astype(np.int32)).max()
+    print(f"phase 10: cavity + outline on the CLI frame: card {t1 - t0:.3f} "
+          f"s, CPU {t2 - t1:.3f} s ({smi}); max difference {step} of 255, "
+          f"{int((on_card != res['image']).any(axis=-1).sum())} pixels "
+          f"changed")
+    _check(step <= 1, "post-processing on the card and the CPU differ")
+
+    # picking on CUDA and on CPU tensors
+    cpu_sess = RenderSession(WIDTH, HEIGHT, [bench_json], animate=False,
+                             device="cpu")
+    cpu_sess.scene = sess.scene
+    for xy in ((WIDTH // 2, HEIGHT // 2), (0, 0)):
+        got, ref = sess.pick(*xy), cpu_sess.pick(*xy)
+        print(f"phase 10: pick {xy}: CUDA {got}, CPU {ref}")
+        _check((got is None) == (ref is None) and (got is None or (
+            got[:2] == ref[:2] and np.isclose(got[2], ref[2], rtol=1e-5,
+                                              atol=0.0))),
+               f"pick {xy} differs between CUDA and the CPU")
+    print(f"phase 10: {time.perf_counter() - start:.1f} s in all ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -444,6 +585,10 @@ def main() -> int:
               f"{row['bound_ms'] / row['ms']:.2%} of its bound")
     _check(all(n > 0 for n in k4_launches.values()),
            f"a K4 variant never launched: {k4_launches}")
+
+    # ---- phase 10: the user's entry points ----
+    entry_points(smi[0], os.path.join(build.BUILD_DIR, "bench_scene.json"),
+                 (sa5, st5, cfg5), k_out, engine)
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks: library_ms null

@@ -92,3 +92,11 @@ def primary_rays(cam, width, height, px, py, x_i, y_i, cell_size,
     origin = _mat4_vec(view_inv, pp)
     dirw = _mat4_vec(view_inv, ray_dir)
     return origin[..., :3], dirw[..., :3]
+
+
+def pick_ray(cam, width, height, x, y):
+    """Single center ray for picking — src/raytracing.rs:237-262."""
+    dev = cam.view_inv.device
+    px = torch.tensor([x], dtype=torch.int32, device=dev)
+    py = torch.tensor([y], dtype=torch.int32, device=dev)
+    return primary_rays(cam, width, height, px, py, 0, 0, 1, 1.0, 1.0, 1)

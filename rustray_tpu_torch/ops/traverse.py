@@ -2,12 +2,15 @@
 
 Port of ``rustray_tpu/ops/traverse.py``.  Mesh traversal is either the
 dense linear scan (ops/intersect.closest_tri) or a coherence-sorted
-cluster walk chosen by ``pallas_algo``: the block walk
-(ops/block_trace.trace_tris_blocks, the default) or the octet rounds
-(ops/octet_trace.trace_tris_octets, ``"octet"``), each a CUDA kernel on
-CUDA tensors and its torch twin on the CPU or under ``pallas_interpret``.
+cluster walk: the XLA cluster walk in plain torch
+(ops/cluster_trace.select_closest_clusters, ``accel_impl="xla"``) or,
+with ``accel_impl="pallas"``, a kernel chosen by ``pallas_algo``: the
+octet rounds (ops/octet_trace.trace_tris_octets, ``"octet"``, the
+default) or the block walk (ops/block_trace.trace_tris_blocks), each a
+CUDA kernel on CUDA tensors and its torch twin on the CPU or under
+``pallas_interpret``.
 Shadow rays carry ``t_max`` = distance to the light; the block walk stops
-at a confirmed hit per lane in any-hit mode, the octet rounds and the dense
+at a confirmed hit per lane in any-hit mode, the other walks and the dense
 scan return the nearest hit.  Per-winner data comes from the packed (T, 16)
 rows of ``build_shade_packs`` and per-material data from
 ``build_mat_packs``.
@@ -144,8 +147,8 @@ def _sphere_solid(sa, for_shadow: bool):
 
 
 def coherence_sort(o, d, alive, t_max, w_lo, w_hi, cl_ok):
-    """Coherence-sort rays for the block walk and cap each lane at its exit
-    from the global cluster bounds.
+    """Coherence-sort rays for the cluster walks and cap each lane at its
+    exit from the global cluster bounds.
 
     Returns (inv, o_s, d_s, alive_s, tmax_s): the sorted rays, their capped
     t_max, and the inverse permutation that restores the caller's order.
@@ -174,17 +177,27 @@ def coherence_sort(o, d, alive, t_max, w_lo, w_hi, cl_ok):
     return inv, o_s, d_s, alive_s, tmax_s
 
 
-def _sorted_mesh_trace(sa, static, prep, o, d, alive, t_max, cl_ok,
-                       accel_boxes, block_n, pallas_interpret, for_shadow,
-                       pallas_algo: str = "block"):
-    """Coherence-sort rays, run the octet rounds (``pallas_algo="octet"``)
-    or the block walk (any other value), and restore the caller's order.
-    Returns (found, tri, t)."""
+def _sorted_mesh_trace(sa, static, prep, o, d, alive, t_max, tri_ok, cl_ok,
+                       accel_boxes, accel_impl, accel_block, accel_gather,
+                       block_n, pallas_interpret, for_shadow,
+                       pallas_algo: str = "octet"):
+    """Coherence-sort rays, run the cluster walk and restore the caller's
+    order.  ``accel_impl="pallas"`` runs a kernel: the octet rounds
+    (``pallas_algo="octet"``) or the block walk (any other value); else the
+    XLA cluster walk on dead-masked rays.  Returns (found, tri, t)."""
     w_lo, w_hi = accel_boxes
     inv, o_s, d_s, alive_s, tmax_s = coherence_sort(o, d, alive, t_max,
                                                     w_lo, w_hi, cl_ok)
     mode = "any" if for_shadow else "closest"
-    if pallas_algo == "octet":
+    if accel_impl != "pallas":
+        from .block_trace import DEAD_ORIGIN
+        from .cluster_trace import select_closest_clusters
+        o_t = torch.where(alive_s[:, None], o_s, DEAD_ORIGIN)
+        d_t = torch.where(alive_s[:, None], d_s, 1.0)
+        found_s, tri_s, t_s = select_closest_clusters(
+            o_t, d_t, prep, tri_ok, w_lo, w_hi, cl_ok, static.cluster_size,
+            accel_block, accel_gather, t_max=tmax_s)
+    elif pallas_algo == "octet":
         # the rounds' block-walk fallback keeps trace_tris_octets' own
         # block_n, as in the JAX package
         from .octet_trace import trace_tris_octets
@@ -202,14 +215,18 @@ def _sorted_mesh_trace(sa, static, prep, o, d, alive, t_max, cl_ok,
 
 def trace_closest(sa, static, prep: TrianglePrep, o, d,
                   for_shadow: bool, allow_reflection_only: bool,
-                  tri_tile: int = 1024, accel_boxes=None, alive=None,
-                  t_max=None, block_n: int = 512,
-                  pallas_interpret: bool = False,
-                  pallas_algo: str = "block") -> Hit:
+                  tri_tile: int = 1024, accel_boxes=None,
+                  accel_block: int = 1024, accel_gather: int = 32,
+                  accel_impl: str = "xla", alive=None, t_max=None,
+                  block_n: int = 512, pallas_interpret: bool = False,
+                  pallas_algo: str = "octet") -> Hit:
     """o (N,3), d (N,3) normalized.  ``accel_boxes`` (w_lo, w_hi) selects
-    the cluster walk over the dense scan, and ``pallas_algo`` which walk
-    (``"octet"``: the octet rounds; else the block walk).  ``alive`` masks
-    rays whose result is unused; ``t_max`` (N,) caps accepted hits."""
+    the cluster walk over the dense scan: the XLA walk
+    (ops/cluster_trace, ``accel_block`` rays per block, ``accel_gather``
+    clusters per round) or, with ``accel_impl="pallas"``, a kernel chosen
+    by ``pallas_algo`` (``"octet"``: the octet rounds; else the block
+    walk).  ``alive`` masks rays whose result is unused; ``t_max`` (N,)
+    caps accepted hits."""
     n = o.shape[0]
     dev = o.device
     inst_ok = instance_mask(sa, for_shadow, allow_reflection_only)
@@ -228,14 +245,18 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
             # an all-dead wavefront skips its traversal outright
             if bool(alive_f.any()):
                 found, tri_idx, t_sel = _sorted_mesh_trace(
-                    sa, static, prep, o, d, alive_f, t_max, cl_ok,
-                    accel_boxes, block_n, pallas_interpret, for_shadow,
-                    pallas_algo)
+                    sa, static, prep, o, d, alive_f, t_max, tri_ok, cl_ok,
+                    accel_boxes, accel_impl, accel_block, accel_gather,
+                    block_n, pallas_interpret, for_shadow, pallas_algo)
             else:
                 found = torch.zeros((n,), dtype=torch.bool, device=dev)
                 tri_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
                 t_sel = torch.full((n,), INF, device=dev)
-            t_tri = selected_t(found, t_sel)
+            if prep.shade_pack is not None:
+                t_tri = selected_t(found, t_sel)
+            else:
+                from .cluster_trace import recompute_t
+                t_tri = recompute_t(o, d, prep, tri_idx, found)
             better = t_tri < best_t
             # instance resolution deferred to hit_attributes (shade_pack);
             # -1 makes a consumer that skips it fail loudly

@@ -10,15 +10,17 @@ and the threefry keys (``fold_in`` of chunk start, sample cell, depth, and
 17/23 for roughness/shadow jitter) are the JAX package's, so a port render
 matches a JAX render of the same scene.
 
-Frames render as a host loop over pixel chunks.  Mesh traversal is the
-dense scan or a coherence-sorted cluster walk, the block walk
-(ops/block_trace) or, with ``pallas_algo="octet"``, the octet rounds
-(ops/octet_trace): CUDA kernels for CUDA scene tensors, their torch twins
-on the CPU.
+Frames render as a host loop over pixel chunks, with checkpoint/resume
+and a progressive preview.  Mesh traversal is the dense scan or a
+coherence-sorted cluster walk: on CUDA scene tensors (or under
+``pallas_interpret``) a kernel, the block walk (ops/block_trace) or, with
+``pallas_algo="octet"``, the octet rounds (ops/octet_trace); otherwise the
+XLA cluster walk in plain torch (ops/cluster_trace).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict
 
 import numpy as np
@@ -74,7 +76,10 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
 
     Returns (emission (N,3) pre-weight, aov dict, children dict)."""
     dev = o.device
-    trace_kw = dict(accel_boxes=boxes, block_n=engine.pallas_block,
+    accel_impl = "pallas" if engine.use_pallas(static, dev) else "xla"
+    trace_kw = dict(accel_boxes=boxes, accel_block=engine.accel_block,
+                    accel_gather=engine.accel_gather, accel_impl=accel_impl,
+                    block_n=engine.pallas_block,
                     pallas_interpret=engine.pallas_interpret,
                     pallas_algo=engine.pallas_algo)
     d = safe_normalize(d)
@@ -397,29 +402,26 @@ def max_queue_factor(n_levels: int) -> float:
 
 
 def prepare_frame(sa, static, engine: EngineConfig):
-    """Per-frame triangle constants, shading packs, slab pack and world
-    cluster boxes.  Returns (prep, boxes); boxes is None on the dense
-    path."""
-    device = sa.verts.device
-    use_pallas = engine.use_pallas(static, device)
-    if engine.use_accel(static) and not use_pallas:
-        raise NotImplementedError(
-            "the cluster walk without the block-walk kernel (the JAX "
-            "package's XLA select_closest_clusters) is not ported yet: use "
-            "CUDA scene tensors, pallas_interpret=True, or accel='off'")
+    """Per-frame triangle constants, shading packs, the kernels' slab pack
+    and world cluster boxes.  Returns (prep, boxes); boxes is None on the
+    dense path."""
+    use_pallas = engine.use_pallas(static, sa.verts.device)
     prep = prepare_triangles(sa)
     prep = build_shade_packs(sa, prep, prepare_vertex_normals(sa))
-    if not use_pallas:
+    if use_pallas:
+        prep = prep.replace(pallas_pack=pack_cluster_tris(
+            prep, sa.tri_valid, static.n_clusters, static.cluster_size,
+            int(sa.cl_lo.shape[0])))
+    if not (engine.use_accel(static) or use_pallas):
         return prep, None
-    prep = prep.replace(pallas_pack=pack_cluster_tris(
-        prep, sa.tri_valid, static.n_clusters, static.cluster_size,
-        int(sa.cl_lo.shape[0])))
     return prep, world_cluster_aabbs(sa)
 
 
 @torch.no_grad()
-def render(sa, static, cfg: RaytracingConfig,
-           engine: EngineConfig = None) -> Dict[str, np.ndarray]:
+def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
+           checkpoint_path: str = None, max_chunks: int = None,
+           preview_path: str = None,
+           preview_every: int = 1) -> Dict[str, np.ndarray]:
     """Render the full frame from the port's tensor SceneArrays (on any
     device; see :func:`rustray_tpu_torch.scene_arrays.to_torch`).
 
@@ -427,7 +429,16 @@ def render(sa, static, cfg: RaytracingConfig,
     (sample-averaged, clamped), ``depth`` (H, W), ``normal`` (H, W, 3),
     ``object_id`` (H, W) int32, ``device_rays`` (live rays traced: primary,
     shadow and secondary, all samples, re-renders included) and
-    ``dropped_rays`` (live rays still dropped after the auto-raise)."""
+    ``dropped_rays`` (live rays still dropped after the auto-raise).
+
+    ``checkpoint_path``: after every chunk, persist the accumulators, the
+    cursor, the ray counts and the queue factor (atomic tmp + rename), and
+    resume from the file when it exists and matches the render's
+    fingerprint, so that an interrupted render resumes into the
+    uninterrupted result bit for bit; the file is removed once the frame
+    completes.  ``max_chunks``: render at most this many chunks and return
+    the partial frame.  ``preview_path``: write the partial frame as a PNG
+    after every ``preview_every``-th chunk and after the last one."""
     engine = engine or EngineConfig()
     dev = sa.verts.device
     W, H = static.width, static.height
@@ -445,6 +456,31 @@ def render(sa, static, cfg: RaytracingConfig,
     device_rays = 0
     dropped_rays = 0
     max_qf = max_queue_factor(n_levels)
+
+    # checkpoint identity: anything that changes per-chunk numerics,
+    # the scene content included
+    fingerprint = repr((W, H, chunk, cfg, engine, n_levels,
+                        _scene_fingerprint(sa, static)))
+    cursor = 0
+    eng = engine
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path, allow_pickle=False) as z:
+            resume = str(z["fingerprint"]) == fingerprint
+            if resume:
+                color, depth, normal, obj_id = (
+                    torch.tensor(z[k], device=dev)
+                    for k in ("color", "depth", "normal", "obj_id"))
+                cursor = int(z["cursor"])
+                device_rays = int(z["device_rays"])
+                dropped_rays = int(z["dropped_rays"])
+                eng = dataclasses.replace(
+                    engine, queue_factor=float(z["queue_factor"]))
+        if resume:
+            print(f"resuming render from checkpoint {checkpoint_path} "
+                  f"(pixel {cursor}/{n_pix})")
+        else:
+            print(f"warning: checkpoint {checkpoint_path} does not match "
+                  f"this render config; starting from scratch")
 
     def render_chunk(start, eng):
         idx = torch.arange(start, start + chunk, device=dev)
@@ -470,10 +506,15 @@ def render(sa, static, cfg: RaytracingConfig,
             traced = traced + tr
         return (c_sum, d_sum, n_sum, oid), int(drops), int(traced)
 
-    # the raised queue factor carries forward across chunks, as in the JAX
-    # package: a scene that overflows once overflows again
-    eng = engine
-    for start in range(0, n_pix, chunk):
+    # every chunk first renders at the engine's own queue factor; the raised
+    # factor carries forward across chunks' re-renders (a scene that
+    # overflows once overflows again) and is restored on resume, so that a
+    # resumed frame equals the uninterrupted one in every key.  (The JAX
+    # package first renders a resumed frame's chunks at the raised factor.)
+    starts = list(range(cursor, n_pix, chunk))
+    if max_chunks is not None:
+        starts = starts[:max_chunks]
+    for done, start in enumerate(starts, 1):
         out, n_drop, traced = render_chunk(start, engine)
         device_rays += traced
         while n_drop > 0 and eng.queue_factor < max_qf:
@@ -492,6 +533,25 @@ def render(sa, static, cfg: RaytracingConfig,
         nv = min(chunk, n_pix - start)
         for acc, part in zip((color, depth, normal, obj_id), out):
             acc[start:start + nv] = part[:nv]
+        if preview_path is not None and (done % preview_every == 0
+                                         or start + chunk >= n_pix):
+            _write_preview(preview_path, color.cpu().numpy(), cfg, W, H)
+        if checkpoint_path is not None:
+            tmp = checkpoint_path + ".tmp.npz"  # savez keeps .npz names
+            np.savez(tmp, fingerprint=fingerprint,
+                     color=color.cpu().numpy(), depth=depth.cpu().numpy(),
+                     normal=normal.cpu().numpy(),
+                     obj_id=obj_id.cpu().numpy(),
+                     cursor=np.int64(start + chunk),
+                     device_rays=np.int64(device_rays),
+                     dropped_rays=np.int64(dropped_rays),
+                     queue_factor=np.float64(eng.queue_factor))
+            os.replace(tmp, checkpoint_path)
+
+    finished = cursor + len(starts) * chunk >= n_pix
+    if checkpoint_path is not None and finished and os.path.exists(
+            checkpoint_path):
+        os.remove(checkpoint_path)
 
     inv_s = 1.0 / cfg.samples
     color = (color * inv_s).cpu().numpy()
@@ -518,3 +578,30 @@ def render(sa, static, cfg: RaytracingConfig,
         device_rays=device_rays,
         dropped_rays=dropped_rays,
     )
+
+
+def _write_preview(path, color_sum, cfg, W, H):
+    """Partial-frame PNG from the running accumulators (progressive view)."""
+    from PIL import Image
+    c = np.minimum(color_sum * (1.0 / cfg.samples), 1.0)
+    if cfg.gamma_correction:
+        c = np.power(np.maximum(c, 0.0), 1.0 / 2.2)
+    img = np.trunc(c * 255.0).astype(np.uint8).reshape(H, W, 3)
+    tmp = path + ".tmp.png"
+    Image.fromarray(img).save(tmp)
+    os.replace(tmp, path)
+
+
+def _scene_fingerprint(sa, static) -> str:
+    """Cheap scene-content identity for the checkpoint fingerprint: shape
+    census plus coarse content sums of the geometry/material leaves, read
+    in double precision on the host as the JAX package reads them."""
+    parts = [static.n_instances, static.n_spheres, static.n_tris,
+             static.n_materials, static.n_lights, static.n_clusters]
+    for leaf in (sa.verts, sa.inst_trans, sa.materials.base_color,
+                 sa.materials.alpha, sa.lights.pos, sa.lights.intensity,
+                 sa.camera.view_inv):
+        a = leaf.detach().cpu().double().numpy()
+        parts.append((a.shape, round(float(a.sum()), 6),
+                      round(float(np.abs(a).sum()), 6)))
+    return repr(parts)

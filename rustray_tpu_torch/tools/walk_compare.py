@@ -71,7 +71,8 @@ def level1_rays(sa, static, prep, boxes, cfg, engine):
     alive = torch.ones((CHUNK,), dtype=torch.bool, device=dev)
     hit = trace_closest(sa, static, prep, o, d, for_shadow=False,
                         allow_reflection_only=False, accel_boxes=boxes,
-                        alive=alive, block_n=engine.pallas_block)
+                        accel_impl="pallas", alive=alive,
+                        block_n=engine.pallas_block, pallas_algo="block")
     attrs = hit_attributes(sa, static, prep, o, d, hit)
     lights = sa.lights
     is_dir = (lights.kind == 0)[None, :]

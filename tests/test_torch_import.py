@@ -19,6 +19,12 @@ import rustray_tpu_torch.scene.gltf_loader
 import rustray_tpu_torch.scene.json_loader
 import rustray_tpu_torch.models.procedural
 import rustray_tpu_torch.build
+import rustray_tpu_torch.cli
+import rustray_tpu_torch.run
+import rustray_tpu_torch.oracle
+import rustray_tpu_torch.render.post
+import rustray_tpu_torch.render.picking
+import rustray_tpu_torch.ops.cluster_trace
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',
                                     'rustray_tpu'))

@@ -119,9 +119,8 @@ def test_render_octet_matches_jax_dense():
 
 
 def test_pallas_algo_selects_the_walk(accel):  # noqa: F811
-    """trace_closest passes pallas_algo on: "octet" runs the rounds, the
-    default and unknown values run the block walk, as in the JAX
-    package."""
+    """trace_closest passes pallas_algo on to the kernel path: "octet" runs
+    the rounds, other values run the block walk, as in the JAX package."""
     from rustray_tpu_torch.ops.traverse import trace_closest
     from rustray_tpu_torch.render.wavefront import prepare_frame
     sa = to_torch(accel["sa"], accel["static"], "cpu")[0]
@@ -133,8 +132,8 @@ def test_pallas_algo_selects_the_walk(accel):  # noqa: F811
         ot.reset_counts()
         bt.reset_launches()
         hit = trace_closest(sa, static, prep, _t(o), _t(d), False, False,
-                            accel_boxes=boxes, block_n=128,
-                            pallas_algo=algo)
+                            accel_boxes=boxes, accel_impl="pallas",
+                            block_n=128, pallas_algo=algo)
         assert hit.hit.any()
         assert (ot.rounds[1] == 1) == octet, algo
         assert (sum(bt.selected.values()) == 0) == octet, algo
