@@ -39,7 +39,20 @@ Phases (each prints its result; any failure raises and exits non-zero):
      uninterrupted one bit for bit; a 320x180 frame through the XLA cluster
      walk (plain torch on the card) against the K1 frame, both timed;
      cavity + outline post-processing on the card against the CPU; and
-     RenderSession.pick on CUDA against CPU tensors.
+     RenderSession.pick on CUDA against CPU tensors;
+ 11. scene gradients (rustray_tpu_torch.parallel.shard): (a)
+     render_loss_and_grad of the bench scene at 640x360, 1 spp, all 5
+     levels, through K1 in its forward pass, against render() of the scene
+     with base_color halved, timed beside the forward-only render(), with
+     its peak memory, and every K1 launch of that pass held to the twin
+     bit for bit on a sample of its blocks (the first and last 128 and
+     256 drawn); (b) at 320x180 the gradient through K1, the octet rounds
+     (K3), the twin and the XLA walk, held to K1's; (c) at 160x90 central
+     differences on the most-hit material; (d) two gloo ranks on the card
+     (python -m rustray_tpu_torch.parallel.dryrun 2 --backend gloo --scene
+     bench), started after (b) and run beside (c), on meshes 2x1 and 1x2
+     against the one-rank run: render, loss, gradients and one SGD
+     step.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -405,6 +418,305 @@ def entry_points(smi, bench_json, small, k_small, engine):
     print(f"phase 10: {time.perf_counter() - start:.1f} s in all ({smi})")
 
 
+def _leaves(grads):
+    return {f"{g}.{k}": v for g, d in grads.items() for k, v in d.items()}
+
+
+def _timed_grad(sa, static, cfg, target, engine):
+    """render_loss_and_grad with every launch and drop count reset just
+    before; returns (loss, grads, seconds, K1 launches, K3 launches,
+    dropped rays)."""
+    import torch
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops import octet_trace as ot
+    from rustray_tpu_torch.parallel import shard
+    torch.cuda.synchronize()
+    bt.reset_launches()
+    ot.reset_counts()
+    shard.reset_dropped()
+    t0 = time.perf_counter()
+    loss, grads = shard.render_loss_and_grad(sa, static, cfg, target, engine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (float(loss), grads, secs, dict(bt.launches), dict(ot.launches),
+            shard.dropped["rays"])
+
+
+class _WalkRecorder:
+    """While active, ``bt.block_walk`` keeps, for every launch of the CUDA
+    walk, its inputs and results on a sample of its blocks: the first and
+    the last ``edge`` and ``extra`` more drawn from a seed.  Each block
+    walks its own list, so the twin on the sample must give the kernel's
+    results on those blocks bit for bit."""
+
+    def __init__(self, edge=128, extra=256):
+        self.edge, self.extra = edge, extra
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from rustray_tpu_torch.ops import block_trace as bt
+        self.bt, self.walk = bt, bt.block_walk
+        # drawn on the card, so that recording adds no host sync
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def recording(count, rays, order, entry, pack, mode="closest",
+                      interpret=False, gated=True, return_visited=False):
+            out = self.walk(count, rays, order, entry, pack, mode, interpret,
+                            gated, return_visited)
+            if rays.device.type == "cuda" and not interpret:
+                nb, dev = rays.shape[0], rays.device
+                at = torch.arange(nb, device=dev)
+                if nb > 2 * self.edge + self.extra:
+                    mid = torch.randperm(nb - 2 * self.edge, device=dev,
+                                         generator=gen)[:self.extra]
+                    at = torch.cat([at[:self.edge],
+                                    torch.sort(mid).values + self.edge,
+                                    at[nb - self.edge:]])
+                self.calls.append(dict(
+                    mode=mode, gated=gated, rays=rays.shape[0] * rays.shape[1],
+                    nb=nb, at=at,
+                    inputs=(count[at], rays[at], order[at], entry[at]),
+                    pack=pack, got=(out[0][at], out[1][at])))
+            return out
+
+        bt.block_walk = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.bt.block_walk = self.walk
+        return False
+
+    def check(self, tag):
+        """Hold every recorded launch against the twin on its sample."""
+        from rustray_tpu_torch.ops.intersect import INF
+        t0 = time.perf_counter()
+        for i, c in enumerate(self.calls):
+            want = self.walk(*c["inputs"], c["pack"], c["mode"],
+                             interpret=True, gated=c["gated"])
+            (t_k, i_k), (t_p, i_p) = c["got"], want
+            f_k, f_p = t_k < INF, t_p < INF
+            n_found = int((f_k != f_p).sum())
+            n_idx = int(((i_k != i_p) & f_k & f_p).sum())
+            n_t = int((t_k != t_p).sum())
+            _check(n_found == n_idx == n_t == 0,
+                   f"{tag}: K1 launch {i} ({c['mode']}, {c['rays']} rays) "
+                   f"differs from the twin on its sample: {n_found} rays "
+                   f"found or missed against it, {n_idx} other winners, "
+                   f"{n_t} other t")
+            print(f"{tag}: K1 launch {i} {c['mode']:7s} {c['rays']} rays in "
+                  f"{c['nb']} blocks: {t_k.shape[0]} blocks (first, last, "
+                  f"drawn) equal to the twin, t and idx bit for bit, "
+                  f"{int(f_p.sum())} hits among them")
+        return time.perf_counter() - t0
+
+
+def gradients(smi, small, tiny):
+    """Phase 11: scene gradients on the card, through K1 in the forward
+    pass; ``small`` and ``tiny`` are phase 5's 320x180 and 160x90 (sa,
+    static, cfg) at 1 spp."""
+    import shutil
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig, render, to_torch
+    from rustray_tpu_torch.build import BUILD_DIR
+    from rustray_tpu_torch.parallel import dryrun, shard
+    from rustray_tpu_torch.render.wavefront import frame_levels
+    from rustray_tpu_torch.tools.capture_waves import load_bench_scene
+
+    start = time.perf_counter()
+    # (a) the full bench scene at 640x360 through K1, the CLI's queue
+    # factor first
+    scene = load_bench_scene(640, 360)
+    sa, static = to_torch(*scene.compile(), "cuda")
+    cfg = scene.raytracing_config
+    cfg.samples = 1
+    _check(frame_levels(sa, cfg) == 5, "the bench frame should have 5 levels")
+    params = shard.extract_diff_params(sa)
+    params["materials"]["base_color"] = params["materials"]["base_color"] * 0.5
+    target = render(shard.apply_diff_params(sa, params), static, cfg,
+                    EngineConfig())["color"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd = render(sa, static, cfg, EngineConfig())
+    torch.cuda.synchronize()
+    fwd_secs = time.perf_counter() - t0
+    qf = 4.0
+    while True:
+        torch.cuda.reset_peak_memory_stats()
+        with _WalkRecorder() as walks:
+            loss, grads, secs, k1, _, dropped = _timed_grad(
+                sa, static, cfg, target, EngineConfig(queue_factor=qf))
+        if dropped == 0 or qf >= 64:
+            break
+        print(f"phase 11: queue factor {qf} dropped {dropped} rays in the "
+              f"gradient pass; doubling it")
+        qf *= 2.0
+    mem = torch.cuda.max_memory_allocated()
+    leaves = _leaves(grads)
+    print(f"phase 11: render_loss_and_grad 640x360 1 spp, 5 levels, "
+          f"{static.n_tris} triangles, queue factor {qf}: loss {loss:.9g} "
+          f"in {secs:.3f} s, peak memory {mem / 2**30:.2f} GiB ({smi}); "
+          f"forward-only render() of the frame {fwd_secs:.3f} s "
+          f"({fwd['device_rays']} device rays); K1 launches {k1}, dropped "
+          f"{dropped}")
+    print("phase 11: max |grad| " + ", ".join(
+        f"{k} {float(v.abs().max()):.4g}" for k, v in leaves.items()))
+    _check(all(n > 0 for n in k1.values()),
+           f"a K1 mode never launched in the gradient's forward pass: {k1}")
+    _check(len(walks.calls) == sum(k1.values()),
+           f"{len(walks.calls)} K1 launches recorded of {sum(k1.values())}")
+    twin_secs = walks.check("phase 11 (a)")
+    print(f"phase 11: (a) every K1 launch of the gradient pass held to the "
+          f"twin on its sample in {twin_secs:.1f} s")
+    _check(dropped == 0, "the gradient pass dropped rays")
+    _check(all(bool(torch.isfinite(v).all()) for v in leaves.values()),
+           "a gradient is not finite")
+    _check(bool(leaves["materials.base_color"].abs().max() > 0)
+           and bool(leaves["camera.view_inv"].abs().max() > 0),
+           "the base_color or view_inv gradient is zero")
+
+    _engines(small)
+
+    # (d) starts here: two gloo ranks on the card run while (c) does
+    out_dir = os.path.join(BUILD_DIR, "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log_path = os.path.join(out_dir, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        ranks = subprocess.Popen(
+            [sys.executable, "-m", "rustray_tpu_torch.parallel.dryrun", "2",
+             "--device", "cuda", "--backend", "gloo", "--scene", "bench",
+             "--out", out_dir, "--timeout", "300"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        _differences(tiny)
+        rc = ranks.wait(timeout=360)
+    finally:
+        if ranks.poll() is None:
+            ranks.kill()
+            ranks.wait()
+    ranks_secs = time.perf_counter() - t0
+    with open(log_path) as f:
+        printed = f.read()
+    for line in printed.splitlines():
+        if line.startswith("dryrun:"):
+            print(f"phase 11: {line}")
+    _check(rc == 0, f"the 2-rank dryrun failed ({rc}):\n{printed[-3000:]}")
+    sa_b, st_b, cfg_b = dryrun.load_scene("bench", "cuda")
+    single = dryrun.run_mesh(sa_b, st_b, cfg_b, EngineConfig(),
+                             shard.make_mesh())
+    for mesh in ("2x1", "1x2"):
+        z = np.load(os.path.join(out_dir, f"mesh_{mesh}.npz"))
+        _check(np.abs(z["color"] - single["color"]).max() <= 1e-5,
+               f"{mesh}: color differs from the one-rank render")
+        for k in ("object_id", "device_rays", "dropped_rays"):
+            _check(np.array_equal(z[k], single[k]),
+                   f"{mesh}: {k} differs from the one-rank run")
+        _check(np.isclose(z["loss"], single["loss"], rtol=1e-5, atol=0.0)
+               and np.isclose(z["loss_after_step"], single["loss_after_step"],
+                              rtol=1e-5, atol=0.0),
+               f"{mesh}: loss differs from the one-rank run")
+        worst = 0.0
+        for k in single:
+            if k.startswith("g."):
+                _check(np.allclose(z[k], single[k], rtol=1e-5, atol=1e-7),
+                       f"{mesh}: {k} differs from the one-rank gradient")
+                worst = max(worst, float(np.abs(z[k] - single[k]).max()))
+        print(f"phase 11: 2 ranks, mesh {mesh}: color max difference "
+              f"{np.abs(z['color'] - single['color']).max():.3g}, ids, "
+              f"device_rays ({int(z['device_rays'])}) and dropped equal; "
+              f"loss {float(z['loss']):.9g} vs {float(single['loss']):.9g}, "
+              f"after one SGD step {float(z['loss_after_step']):.9g}; grads "
+              f"max difference {worst:.3g}")
+    print(f"phase 11: the 2-rank dryrun took {ranks_secs:.1f} s, beside "
+          f"(c); phase 11 "
+          f"{time.perf_counter() - start:.1f} s in all ({smi})")
+
+
+def _engines(small):
+    """Phase 11 (b): the 320x180 gradient through every traversal path
+    against K1's; ``small`` is (sa, static, cfg) at 1 spp."""
+    import numpy as np
+    from rustray_tpu_torch import EngineConfig
+
+    sa5, st5, cfg5 = small
+    black = np.zeros((st5.height, st5.width, 3), np.float32)
+    engines = {"K1": EngineConfig(),
+               "octet (K3)": EngineConfig(pallas_algo="octet"),
+               "twin": EngineConfig(pallas="on", pallas_interpret=True),
+               "XLA walk": EngineConfig(accel="on", pallas="off")}
+    runs = {}
+    for name, eng in engines.items():
+        loss5, g5, secs5, k1, k3, dropped = _timed_grad(sa5, st5, cfg5, black,
+                                                        eng)
+        runs[name] = (loss5, _leaves(g5))
+        print(f"phase 11: 320x180 gradient through {name}: loss {loss5:.9g} "
+              f"in {secs5:.3f} s; K1 "
+              f"launches {k1}, K3 launches {k3}, "
+              f"dropped {dropped}")
+        _check(dropped == 0, f"{name}: the gradient pass dropped rays")
+        launched = {"K1": all(n > 0 for n in k1.values()),
+                    "octet (K3)": all(n > 0 for n in k3.values())}
+        _check(launched.get(name, not (any(k1.values()) or any(k3.values()))),
+               f"{name}: unexpected kernel launches K1 {k1}, K3 {k3}")
+    loss_k1, ref = runs["K1"]
+    for name, (loss5, got) in runs.items():
+        worst = 0.0
+        for k, b in ref.items():
+            tol = 1e-3 * b.abs() + 1e-5 * float(b.abs().max())
+            err = (got[k] - b).abs()
+            _check(bool((err <= tol).all()), f"{name}: {k} differs from "
+                   f"K1's by {float(err.max()):.3g}")
+            worst = max(worst, float((err / tol.clamp(min=1e-30)).max()))
+        _check(abs(loss5 - loss_k1) <= 1e-6 * abs(loss_k1),
+               f"{name}: loss {loss5} differs from K1's {loss_k1}")
+        print(f"phase 11: {name} vs K1: loss difference "
+              f"{loss5 - loss_k1:.3g}, every leaf within "
+              f"1e-3*|b| + 1e-5*max|b| (at most {worst:.3f} of it)")
+
+
+
+def _differences(tiny):
+    """Phase 11 (c): central differences at 160x90 on the most-hit
+    material; ``tiny`` is (sa, static, cfg) at 1 spp."""
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig, render
+    from rustray_tpu_torch.parallel import shard
+
+    sa9, st9, cfg9 = tiny
+    out9 = render(sa9, st9, cfg9, EngineConfig())
+    hit = out9["depth"].reshape(-1) > 0
+    oid = torch.as_tensor(out9["object_id"].reshape(-1)[hit])
+    inst_of = {int(i): n for n, i in enumerate(sa9.inst_obj_id.tolist())}
+    mats = sa9.inst_mat.cpu()[[inst_of[int(i)] for i in oid]]
+    m = int(torch.bincount(mats).argmax())
+    black9 = np.zeros((st9.height, st9.width, 3), np.float32)
+    eng9 = EngineConfig()
+    _, g9, _, _, _, dropped = _timed_grad(sa9, st9, cfg9, black9, eng9)
+    _check(dropped == 0, "the 160x90 gradient pass dropped rays")
+    eps = 1e-3
+    for field, idx in (("base_color", (m, 0)), ("base_color", (m, 1)),
+                       ("base_color", (m, 2)), ("reflectivity", (m,))):
+        def loss_at(delta):
+            p = shard.extract_diff_params(sa9)
+            leaf = p["materials"][field].clone()
+            leaf[idx] += delta
+            p["materials"][field] = leaf
+            loss9, _ = shard.render_loss_and_grad(
+                shard.apply_diff_params(sa9, p), st9, cfg9, black9, eng9)
+            return float(loss9)
+        fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+        g = float(g9["materials"][field][idx])
+        print(f"phase 11: 160x90 material {m} ({int((mats == m).sum())} of "
+              f"{int(hit.sum())} hit pixels) {field}{list(idx)}: gradient "
+              f"{g:.6g}, central difference {fd:.6g}")
+        _check(np.isclose(g, fd, rtol=5e-2, atol=1e-4),
+               f"{field}{list(idx)}: gradient {g} vs central difference {fd}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -507,6 +819,7 @@ def main() -> int:
            "device rays differ from the JAX package's")
     _check(within >= 0.995 and oid >= 0.995,
            "160x90 render differs from the JAX package's")
+    tiny5 = (sa5, st5, cfg5)
     small = load_bench_scene(320, 180)
     sa5, st5 = to_torch(*small.compile(), "cuda")
     cfg5 = small.raytracing_config
@@ -589,6 +902,9 @@ def main() -> int:
     # ---- phase 10: the user's entry points ----
     entry_points(smi[0], os.path.join(build.BUILD_DIR, "bench_scene.json"),
                  (sa5, st5, cfg5), k_out, engine)
+
+    # ---- phase 11: scene gradients and the rays x samples split ----
+    gradients(smi[0], (sa5, st5, cfg5), tiny5)
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks: library_ms null

@@ -537,18 +537,23 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     (N,) caps accepted hits (None: unbounded); ``alive`` masks unused
     lanes.  The pack's size selects the gated or ungated walk
     (:func:`pack_is_gated`).  Returns (found (N,) bool, best_tri (N,)
-    int32, best_t (N,) f32 — INF on miss)."""
+    int32, best_t (N,) f32 — INF on miss).  Selection only: the inputs
+    are detached, as the JAX package's ``stop_gradient``s do; gradients of
+    t go through ops/traverse.selected_t."""
     if prep.pallas_pack is None:
         raise ValueError("trace_tris_blocks requires prep.pallas_pack — "
                          "build it with pack_cluster_tris")
     if prep.pallas_pack.shape[2] != cluster_size:
         raise ValueError("pallas_pack slabs do not match cluster_size")
+    o, d, w_lo, w_hi = o.detach(), d.detach(), w_lo.detach(), w_hi.detach()
+    t_max = None if t_max is None else t_max.detach()
+    pack = prep.pallas_pack.detach()
     n = o.shape[0]
     count, rays, order, entry = prepare_walk(o, d, alive, t_max, w_lo, w_hi,
                                              cl_ok, block_n)
-    gated = pack_is_gated(prep.pallas_pack)
+    gated = pack_is_gated(pack)
     selected["gated" if gated else "ungated"] += 1
-    t, idx = block_walk(count, rays, order, entry, prep.pallas_pack, mode,
-                        interpret, gated)
+    t, idx = block_walk(count, rays, order, entry, pack, mode, interpret,
+                        gated)
     t = t.reshape(-1)[:n]
     return t < INF, idx.reshape(-1)[:n], t

@@ -14,8 +14,9 @@ active; a block whose loop condition failed is frozen, never given another
 round (a later round could still move a winner through f32 slop at box
 faces).  Groups bound the (blocks, rays, clusters) temporaries on the card.
 
-Traversal is selection only: inputs are detached, and callers recompute
-the winner's t differentiably (:func:`recompute_t`).
+Traversal is selection only: inputs are detached, and callers route the
+winner's t through ops/traverse.selected_t, whose backward is the analytic
+VJP (or, without a shade pack, recompute it with :func:`recompute_t`).
 """
 from __future__ import annotations
 
@@ -153,8 +154,8 @@ def select_closest_clusters(o, d, prep: TrianglePrep, tri_ok,
     o, d: (N, 3) world rays (d normalized).  Returns (found (N,) bool,
     best_tri (N,) int32, best_t (N,) f32 — INF on miss).  Not
     differentiable (inputs are detached); route gradients through
-    :func:`recompute_t`.  Padded rays get o = 0, d = 1 and t_max = -1, as
-    in the JAX package."""
+    ops/traverse.selected_t or :func:`recompute_t`.  Padded rays get o = 0,
+    d = 1 and t_max = -1, as in the JAX package."""
     o, d = o.detach(), d.detach()
     w_lo, w_hi = w_lo.detach(), w_hi.detach()
     dev = o.device

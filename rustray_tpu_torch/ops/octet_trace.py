@@ -513,11 +513,16 @@ def trace_tris_octets(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok,
     ``t_max`` (N,) caps accepted hits, ``alive`` masks unused lanes.
     Returns (found (N,) bool, best_tri (N,) int32, best_t (N,) f32).
     ``mode="any"`` returns the closest hit of the rounds (a valid occluder)
-    and uses occlusion to collapse the round-1 need filter."""
+    and uses occlusion to collapse the round-1 need filter.  Selection
+    only: the inputs are detached, as the JAX package's ``stop_gradient``s
+    do; gradients of t go through ops/traverse.selected_t."""
     from .block_trace import DEAD_ORIGIN
 
     if prep.pallas_pack is None:
         raise ValueError("trace_tris_octets requires prep.pallas_pack")
+    o, d, w_lo, w_hi = o.detach(), d.detach(), w_lo.detach(), w_hi.detach()
+    t_max = None if t_max is None else t_max.detach()
+    prep = prep.replace(pallas_pack=prep.pallas_pack.detach())
     n = o.shape[0]
     dev = o.device
     if alive is None:

@@ -9,6 +9,10 @@ octet rounds (ops/octet_trace.trace_tris_octets, ``"octet"``, the
 default) or the block walk (ops/block_trace.trace_tris_blocks), each a
 CUDA kernel on CUDA tensors and its torch twin on the CPU or under
 ``pallas_interpret``.
+The walks are selection only; :func:`selected_t` carries the winner's t
+and, as its backward, the JAX package's analytic VJP through one triangle
+per ray, so every walk (kernel, twin or XLA) gives the dense scan's
+gradient.
 Shadow rays carry ``t_max`` = distance to the light; the block walk stops
 at a confirmed hit per lane in any-hit mode, the other walks and the dense
 scan return the nearest hit.  Per-winner data comes from the packed (T, 16)
@@ -118,10 +122,48 @@ def build_shade_packs(sa, prep: TrianglePrep, wvn) -> TrianglePrep:
                         mat_pack_f=mat_f, mat_pack_i=mat_i)
 
 
-def selected_t(found, t_sel):
-    """The traversal's own winner t (forward only; the analytic backward of
-    the JAX package's custom VJP comes with gradients)."""
-    return torch.where(found, t_sel, INF)
+class _SelectedT(torch.autograd.Function):
+    """Forward: the traversal's own winner t (no gather).  Backward: the
+    analytic t = (an - o·n)/(d·n) differentiated through one gathered
+    ``shade_pack`` row per ray; the pack's cotangent (a scatter-add) is
+    only built when the pack needs one.  ``t_sel`` gets no gradient: the
+    walks are selection only."""
+
+    @staticmethod
+    def forward(ctx, o, d, shade_pack, tri_idx, found, t_sel):
+        ctx.save_for_backward(o, d, shade_pack, tri_idx, found)
+        return torch.where(found, t_sel, INF)
+
+    @staticmethod
+    def backward(ctx, g):
+        o, d, pack, tri_idx, found = ctx.saved_tensors
+        tri = tri_idx.long()
+        row = pack[tri]
+        n = row[:, 0:3]
+        an = row[:, 3]
+        d_n = dot(d, n)
+        denom = torch.where(torch.abs(d_n) > 1e-30, d_n, 1.0)
+        t = (an - dot(o, n)) / denom
+        g = torch.where(found, g, 0.0)
+        gd = (g / denom)[:, None]
+        d_o = -gd * n if ctx.needs_input_grad[0] else None
+        d_d = -gd * t[:, None] * n if ctx.needs_input_grad[1] else None
+        d_pack = None
+        if ctx.needs_input_grad[2]:
+            d_row = torch.zeros_like(row)
+            d_row[:, 0:3] = gd * (-o - t[:, None] * d)
+            d_row[:, 3] = g / denom
+            d_pack = torch.zeros_like(pack).index_add_(
+                0, tri, torch.where(found[:, None], d_row, 0.0))
+        return d_o, d_d, d_pack, None, None, None
+
+
+def selected_t(o, d, shade_pack, tri_idx, found, t_sel):
+    """The traversal's winner t, ``where(found, t_sel, INF)``, with the JAX
+    package's custom VJP (rustray_tpu/ops/traverse.py ``selected_t``) as
+    its backward, so the hit distance's gradient reaches ``o``, ``d`` and
+    the pack whichever walk selected the winner."""
+    return _SelectedT.apply(o, d, shade_pack, tri_idx, found, t_sel)
 
 
 def instance_mask(sa, for_shadow: bool, allow_reflection_only: bool):
@@ -184,10 +226,14 @@ def _sorted_mesh_trace(sa, static, prep, o, d, alive, t_max, tri_ok, cl_ok,
     """Coherence-sort rays, run the cluster walk and restore the caller's
     order.  ``accel_impl="pallas"`` runs a kernel: the octet rounds
     (``pallas_algo="octet"``) or the block walk (any other value); else the
-    XLA cluster walk on dead-masked rays.  Returns (found, tri, t)."""
+    XLA cluster walk on dead-masked rays.  Returns (found, tri, t).
+    Selection only: the rays are detached, and gradients of the winner's
+    t go through :func:`selected_t`."""
     w_lo, w_hi = accel_boxes
-    inv, o_s, d_s, alive_s, tmax_s = coherence_sort(o, d, alive, t_max,
-                                                    w_lo, w_hi, cl_ok)
+    t_max = None if t_max is None else t_max.detach()
+    inv, o_s, d_s, alive_s, tmax_s = coherence_sort(
+        o.detach(), d.detach(), alive, t_max, w_lo.detach(), w_hi.detach(),
+        cl_ok)
     mode = "any" if for_shadow else "closest"
     if accel_impl != "pallas":
         from .block_trace import DEAD_ORIGIN
@@ -253,7 +299,8 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
                 tri_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
                 t_sel = torch.full((n,), INF, device=dev)
             if prep.shade_pack is not None:
-                t_tri = selected_t(found, t_sel)
+                t_tri = selected_t(o, d, prep.shade_pack, tri_idx, found,
+                                   t_sel)
             else:
                 from .cluster_trace import recompute_t
                 t_tri = recompute_t(o, d, prep, tri_idx, found)

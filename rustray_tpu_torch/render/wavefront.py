@@ -384,6 +384,58 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
     return acc, aov0["depth"], aov0["normal"], id_acc, dropped, traced
 
 
+def build_chunk_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
+                   n_levels: int):
+    """The per-chunk render function of the JAX package's
+    ``build_chunk_fn``.
+
+    Signature: chunk_fn(sa, prep, boxes, px, py, valid, cells, cell_idx,
+    cell_valid, key) → (color_sum, depth_sum, normal_sum, obj_id, dropped,
+    traced), where (prep, boxes) come from :func:`prepare_frame` and
+    ``cells`` (S, 2) are sample cells (possibly a shard of the full
+    pattern) on the host, ``cell_idx`` their global sample indices (a
+    cell's key is ``fold_in(key, cell_idx[i])``, so every sharding draws
+    the same numbers) and ``cell_valid`` masks padding cells, which add
+    nothing.  Sums are not divided by the sample count; the object id is
+    the last valid cell's; dropped and traced are 0-dim int64 tensors.
+    It runs under autograd unless its caller turns gradients off."""
+
+    def sample(sa, prep, boxes, px, py, valid, cell, idx, key):
+        return render_sample(sa, static, prep, cfg, engine, n_levels, boxes,
+                             px, py, valid, cell, rng.fold_in(key, int(idx)))
+
+    def zeros(n, dev):
+        # one tensor per output: callers reduce them in place
+        return (torch.zeros((n, 3), device=dev), torch.zeros((n,), device=dev),
+                torch.zeros((n, 3), device=dev),
+                torch.zeros((n,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+
+    def chunk_fn(sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
+                 key):
+        if len(cells) == 1:
+            if not bool(cell_valid[0]):
+                return zeros(px.shape[0], px.device)
+            return sample(sa, prep, boxes, px, py, valid, cells[0],
+                          cell_idx[0], key)
+        c_sum, d_sum, n_sum, obj_id, dropped, traced = zeros(px.shape[0],
+                                                             px.device)
+        for cell, idx, cv in zip(cells, cell_idx, cell_valid):
+            if not bool(cv):
+                continue
+            c, dpt, nrm, obj_id, dr, tr = sample(sa, prep, boxes, px, py,
+                                                 valid, cell, idx, key)
+            c_sum = c_sum + c
+            d_sum = d_sum + dpt
+            n_sum = n_sum + nrm
+            dropped = dropped + dr
+            traced = traced + tr
+        return c_sum, d_sum, n_sum, obj_id, dropped, traced
+
+    return chunk_fn
+
+
 def frame_levels(sa, cfg: RaytracingConfig) -> int:
     """Number of wavefront levels: 1 + max_recursion when any material can
     spawn reflection/refraction children, else 1."""
@@ -482,29 +534,19 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
             print(f"warning: checkpoint {checkpoint_path} does not match "
                   f"this render config; starting from scratch")
 
+    cell_idx = np.arange(cells.shape[0])
+    cell_valid = np.ones(cells.shape[0], bool)
+
     def render_chunk(start, eng):
         idx = torch.arange(start, start + chunk, device=dev)
         valid = idx < n_pix
         idx_c = torch.clamp(idx, max=n_pix - 1)
         px = (idx_c % W).to(torch.int32)
         py = (idx_c // W).to(torch.int32)
-        ckey = rng.fold_in(key, start)
-        c_sum = torch.zeros((chunk, 3), device=dev)
-        d_sum = torch.zeros((chunk,), device=dev)
-        n_sum = torch.zeros((chunk, 3), device=dev)
-        oid = torch.zeros((chunk,), dtype=torch.int32, device=dev)
-        drops = traced = 0
-        for ci in range(cells.shape[0]):
-            c, dpt, nrm, o_id, dr, tr = render_sample(
-                sa, static, prep, cfg, eng, n_levels, boxes, px, py, valid,
-                cells[ci], rng.fold_in(ckey, ci))
-            c_sum = c_sum + c
-            d_sum = d_sum + dpt
-            n_sum = n_sum + nrm
-            oid = o_id          # object id: the last sample wins
-            drops = drops + dr
-            traced = traced + tr
-        return (c_sum, d_sum, n_sum, oid), int(drops), int(traced)
+        *out, drops, traced = build_chunk_fn(static, cfg, eng, n_levels)(
+            sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
+            rng.fold_in(key, start))
+        return out, int(drops), int(traced)
 
     # every chunk first renders at the engine's own queue factor; the raised
     # factor carries forward across chunks' re-renders (a scene that
@@ -553,6 +595,17 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
             checkpoint_path):
         os.remove(checkpoint_path)
 
+    return finish_frame(color, depth, normal, obj_id, cfg, W, H,
+                        device_rays, dropped_rays)
+
+
+def finish_frame(color, depth, normal, obj_id, cfg: RaytracingConfig, W: int,
+                 H: int, device_rays: int,
+                 dropped_rays: int) -> Dict[str, np.ndarray]:
+    """The AOV dict of :func:`render` from the frame's per-pixel sample
+    sums (tensors of (W·H, ...)): averaged over the samples, the color
+    clamped and quantized (with gamma when the config asks for it), the
+    normal normalized."""
     inv_s = 1.0 / cfg.samples
     color = (color * inv_s).cpu().numpy()
     depth = (depth * inv_s).cpu().numpy()

@@ -189,8 +189,11 @@ def same_as_twin(got, want):
     (t_k, i_k), (t_p, i_p) = got, want
     f_k, f_p = t_k < INF, t_p < INF
     both = f_k & f_p
-    agree = (f_k == f_p).float().mean().item()
-    same_i = (i_k == i_p)[both].float().mean().item() if both.any() else 1.0
+    # shares from integer counts: a float32 mean on the card multiplies the
+    # sum by 1/N, so a mean of N ones can round below 1.0
+    agree = int((f_k == f_p).sum()) / f_k.numel() if f_k.numel() else 1.0
+    n_both = int(both.sum())
+    same_i = int((i_k == i_p)[both].sum()) / n_both if n_both else 1.0
     err = (t_k - t_p).abs()[both].max().item() if both.any() else 0.0
     return agree, same_i, err
 

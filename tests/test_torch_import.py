@@ -25,7 +25,9 @@ import rustray_tpu_torch.oracle
 import rustray_tpu_torch.render.post
 import rustray_tpu_torch.render.picking
 import rustray_tpu_torch.ops.cluster_trace
-bad = sorted(m for m in sys.modules
+import rustray_tpu_torch.parallel.shard
+import rustray_tpu_torch.parallel.dryrun
+bad =sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',
                                     'rustray_tpu'))
 print(bad)
