@@ -20,6 +20,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
      a tie check of torch.argmin on the card;
   4. the main path: render() of the 1280x720 bench frame with the bench
      engine settings, counting kernel launches, drops and device rays;
+     render() takes its frame path, so the chunk program runs as CUDA
+     graphs (one capture per queue factor, one replay per chunk and cell;
+     a replay adds its capture's launches to the counts), as in every
+     render() below without a checkpoint, preview or max_chunks;
   5. a 160x90 frame through the kernel against the JAX package's render of
      it (tests/data/jax_bench_160x90.npz, written on the CPU by
      tests/data/make_jax_bench_reference.py), and a 320x180 frame through
@@ -52,7 +56,18 @@ Phases (each prints its result; any failure raises and exits non-zero):
      (python -m rustray_tpu_torch.parallel.dryrun 2 --backend gloo --scene
      bench), started after (b) and run beside (c), on meshes 2x1 and 1x2
      against the one-rank run: render, loss, gradients and one SGD
-     step.
+     step;
+ 12. the frame path against the eager chunk program (build_chunk_fn per
+     chunk, with its host syncs): the bench frames of phases 4 (K1) and 6
+     (K3 with its K1 fallback) rendered again eagerly, equal bit for bit in
+     every AOV, the image, device and dropped rays and the fallback's rays,
+     with both frames' seconds, the captures, their seconds and the
+     replays, and both launch counts (the graphs launch their kernels on
+     dead levels, slices and fallbacks too); the K1 frame path under
+     torch.profiler (its device idle share); a glass variant of the tests'
+     bench mini-scene whose queue factor 1.0 is raised twice over three
+     chunks, and then the plain mini-scene sharing its static, back to
+     back, each equal to its own eager frame.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -243,24 +258,31 @@ def compare_rounds(prep, boxes, sets):
 
 def bench_frame(tag, sa, static, cfg, engine, samples, counters):
     """Render the bench frame with ``counters`` (dicts of launch counts)
-    reset just before and read just after; check drops, the image and the
-    device rays per sample.  Returns (seconds, rays per sample, counts)."""
+    and the chunk program's graph counts reset just before and read just
+    after; check drops, the image and the device rays per sample.  Returns
+    (seconds, rays per sample, counts, the render's output, graph
+    counts)."""
     import numpy as np
     import torch
     from rustray_tpu_torch import render
+    from rustray_tpu_torch.render import wavefront
     cfg.samples = samples
     torch.cuda.synchronize()
     for reset in counters.values():
         reset[1]()
+    wavefront.reset_graph_stats()
     t0 = time.perf_counter()
     out = render(sa, static, cfg, engine)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {k: dict(c[0]) for k, c in counters.items()}
+    graph = dict(wavefront.graph_stats)
     print(f"{tag}: {WIDTH}x{HEIGHT} {samples} spp in {secs:.2f} s: "
           f"device_rays={out['device_rays']} "
           f"({out['device_rays'] / secs / 1e6:.2f} Mrays/s), "
-          f"dropped={out['dropped_rays']}, kernel launches {counts}")
+          f"dropped={out['dropped_rays']}, kernel launches {counts}; "
+          f"{graph['captures']} captures in "
+          f"{graph['capture_seconds']:.3f} s, {graph['replays']} replays")
     _check(out["dropped_rays"] == 0, f"{tag}: rays still dropped after "
            "auto-raise")
     color = out["color"]
@@ -273,7 +295,7 @@ def bench_frame(tag, sa, static, cfg, engine, samples, counters):
            f"{RAYS_PER_SAMPLE:.0f}")
     print(f"{tag}: device rays per sample {per:.1f} vs the JAX package's "
           f"{RAYS_PER_SAMPLE} ({per / RAYS_PER_SAMPLE - 1.0:+.4%})")
-    return secs, per, counts
+    return secs, per, counts, out, graph
 
 
 def compare_renders(tag, a, b):
@@ -717,6 +739,140 @@ def _differences(tiny):
                f"{field}{list(idx)}: gradient {g} vs central difference {fd}")
 
 
+FRAME_KEYS = ("image", "color", "depth", "normal", "object_id",
+              "device_rays", "dropped_rays")
+
+
+def _differ(a, b):
+    """The keys of FRAME_KEYS in which two renders differ at all."""
+    import numpy as np
+    return [k for k in FRAME_KEYS
+            if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]
+
+
+def _eager(fn):
+    """``fn()`` with the chunk program run eagerly on the card:
+    build_chunk_fn per chunk, with its host syncs (the parent's loop)."""
+    from rustray_tpu_torch.render import wavefront
+    wavefront._CAPTURE = False
+    try:
+        return fn()
+    finally:
+        wavefront._CAPTURE = True
+
+
+def _mini_scene(glass):
+    """The tests' bench mini-scene at 96x64 (1,010 triangles in 9
+    clusters, 4 Monte-Carlo samples, 7 levels) on the card; ``glass``
+    makes every material reflect and refract, so that queue factor 1.0
+    drops rays and is raised twice."""
+    from rustray_tpu_torch import to_torch
+    from rustray_tpu_torch.models.procedural import bench_scene
+    scene = bench_scene(grid=2, lat=10, lon=14, width=96, height=64)
+    if glass:
+        for m in scene.materials:
+            m.reflectivity, m.alpha, m.refraction_index = 0.5, 0.5, 1.5
+    sa, static = to_torch(*scene.compile(), "cuda")
+    return sa, static, scene.raytracing_config
+
+
+def frame_path(smi, sa, static, cfg, samples, frames):
+    """Phase 12: the frame path against the eager chunk program.
+    ``frames`` maps a path's name to (engine, launch counters, phase 4's or
+    6's (seconds, counts, output, graph counts, fallback rays))."""
+    import torch
+    from rustray_tpu_torch import EngineConfig, render
+    from rustray_tpu_torch.build import BUILD_DIR
+    from rustray_tpu_torch.ops import octet_trace as ot
+    from rustray_tpu_torch.render import wavefront
+    from rustray_tpu_torch.tools.profile_frame import profile
+    start = time.perf_counter()
+    for name, (eng, counters, graph) in frames.items():
+        secs, counts, out, g, fb = graph
+        ot.reset_counts()
+        e_secs, _, e_counts, e_out, e_g = _eager(lambda: bench_frame(
+            f"phase 12: eager {name}", sa, static, cfg, eng, samples,
+            counters))
+        e_fb = int(ot.fallback["rays"])
+        _check(e_g["captures"] == 0, f"phase 12: the eager {name} frame "
+               f"captured: {e_g}")
+        diff = _differ(out, e_out)
+        _check(not diff, f"phase 12: {name}: the frame path differs from "
+               f"the eager chunk program in {diff}")
+        _check(fb == e_fb, f"phase 12: {name}: fallback rays {fb} vs eager "
+               f"{e_fb}")
+        # a graph launches its kernels on dead levels, slices and fallbacks
+        # too, where the eager program asks the device and skips them
+        for k, per_mode in counts.items():
+            for m, n in per_mode.items():
+                _check(n >= e_counts[k][m], f"phase 12: {name}: {k}[{m}] "
+                       f"launched {n} times in the frame path, fewer than "
+                       f"the eager {e_counts[k][m]}")
+        print(f"phase 12: {name}: frame path equal to the eager chunk "
+              f"program bit for bit in {', '.join(FRAME_KEYS)} "
+              f"({out['device_rays'] / samples:.1f} rays per sample, "
+              f"{out['dropped_rays']} dropped, fallback rays {fb}); "
+              f"frame path {secs:.3f} s ({g['captures']} captures in "
+              f"{g['capture_seconds']:.3f} s, {g['replays']} replays) "
+              f"against eager {e_secs:.3f} s; launches per frame "
+              f"{counts} against eager {e_counts} ({smi})")
+
+    # the frame path's device idle share, under the profiler
+    cfg.samples = samples
+    engine = frames["K1"][0]
+    out, p = profile(lambda: render(sa, static, cfg, engine),
+                     os.path.join(BUILD_DIR, "trace_frame_k1.json"))
+    _check(not _differ(out, frames["K1"][2][2]), "phase 12: the profiled "
+           "frame differs from phase 4's")
+    print(f"phase 12: K1 frame path under the profiler: {p['wall']:.3f} s, "
+          f"device busy {p['busy']:.3f} s, idle share {p['idle']:.3f}; "
+          f"{p['graph']['captures']} captures in "
+          f"{p['graph']['capture_seconds']:.3f} s, {p['graph']['replays']} "
+          f"replays")
+    for k, s, n in p["ranked"][:8]:
+        print(f"phase 12:   {s * 1e3:9.1f} ms {n:7d} calls "
+              f"{s / p['busy']:7.2%}  {k[:80]}")
+
+    # a scene that raises its queue factor, over 3 chunks, both paths
+    glass = EngineConfig(chunk_pixels=2048, queue_factor=1.0, accel="on")
+    sa_g, st_g, cfg_g = _mini_scene(True)
+    wavefront.reset_graph_stats()
+    g_out = render(sa_g, st_g, cfg_g, glass)
+    g = dict(wavefront.graph_stats)
+    e_out = _eager(lambda: render(sa_g, st_g, cfg_g, glass))
+    diff = _differ(g_out, e_out)
+    _check(not diff, f"phase 12: the glass scene's frame path differs from "
+           f"the eager chunk program in {diff}")
+    _check(g["captures"] >= 2 and g_out["dropped_rays"] == 0,
+           f"phase 12: the glass scene raised no queue factor: {g}")
+    # the per-chunk path replays the first factor's graph after the raised
+    # one's was captured in the same pool
+    diff = _differ(render(sa_g, st_g, cfg_g, glass, max_chunks=3), e_out)
+    _check(not diff, f"phase 12: the glass scene's per-chunk path differs "
+           f"from the eager chunk program in {diff}")
+    print(f"phase 12: glass mini-scene 96x64, 3 chunks, queue factor 1.0: "
+          f"{g['captures']} captures (raised factors), {g['replays']} "
+          f"replays; equal to the eager frame in every key, device rays "
+          f"{g_out['device_rays']}, dropped 0, and so is its per-chunk "
+          f"path")
+
+    # two scenes sharing one static, back to back through the frame path
+    sa_b, st_b, cfg_b = _mini_scene(False)
+    _check(st_b == st_g, "phase 12: the two mini-scenes differ in static")
+    outs = [render(sa_g, st_g, cfg_g, glass), render(sa_b, st_g, cfg_b, glass)]
+    eager = [e_out, _eager(lambda: render(sa_b, st_g, cfg_b, glass))]
+    for name, a, b in zip(("glass", "plain"), outs, eager):
+        diff = _differ(a, b)
+        _check(not diff, f"phase 12: the {name} scene after another differs "
+               f"from its eager frame in {diff}")
+    _check(_differ(outs[0], outs[1]), "phase 12: the two scenes rendered "
+           "the same frame")
+    torch.cuda.synchronize()
+    print(f"phase 12: two scenes sharing one static, back to back: each "
+          f"equal to its own eager frame; phase 12 in "
+          f"{time.perf_counter() - start:.1f} s ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -793,8 +949,10 @@ def main() -> int:
             "K2": (bt.ungated_launches, bt.reset_launches)}
 
     # ---- phase 4: the main path ----
-    secs4, per4, c4 = bench_frame("phase 4", sa, static, cfg, engine,
-                                  samples, walk)
+    secs4, per4, c4, out4, g4 = bench_frame("phase 4", sa, static, cfg,
+                                            engine, samples, walk)
+    _check(g4["captures"] >= 1 and g4["replays"] >= 1,
+           f"phase 4: the frame path captured no chunk program: {g4}")
     _check(all(n > 0 for n in c4["K1"].values()),
            f"a K1 mode never launched: {c4['K1']}")
     _check(not any(c4["K2"].values()), "the bench pack ran the ungated walk")
@@ -837,21 +995,21 @@ def main() -> int:
     # ---- phase 6: the octet path ----
     octet = dataclasses.replace(engine, pallas_algo="octet")
     octet_counts = {"K3": (ot.launches, ot.reset_counts), **walk}
-    secs6, per6, c6 = bench_frame("phase 6", sa, static, cfg, octet,
-                                  samples, octet_counts)
+    secs6, per6, c6, out6, g6 = bench_frame("phase 6", sa, static, cfg,
+                                            octet, samples, octet_counts)
+    fb6 = (int(ot.fallback["rays"]), ot.fallback["calls"])
     _check(all(n > 0 for n in c6["K3"].values()),
            f"the octet path never launched a round: {c6['K3']}")
     print(f"phase 6: octet frame {secs6:.2f} s vs block {secs4:.2f} s; "
           f"device rays per sample {per6 - per4:+.1f} from phase 4's; "
-          f"fallback re-traced {int(ot.fallback['rays'])} rays in "
-          f"{ot.fallback['calls']} calls")
+          f"fallback re-traced {fb6[0]} rays in {fb6[1]} calls")
 
     # ---- phase 7: the large-pack path (K2) ----
     budget = bt._VMEM_PACK_BUDGET
     bt._VMEM_PACK_BUDGET = 0
     try:
-        secs7, per7, c7 = bench_frame("phase 7", sa, static, cfg, engine, 1,
-                                      walk)
+        secs7, per7, c7, _, _ = bench_frame("phase 7", sa, static, cfg,
+                                            engine, 1, walk)
         _check(not any(c7["K1"].values()) and all(
             n > 0 for n in c7["K2"].values()),
             f"the forced large-pack frame did not run only K2: {c7}")
@@ -905,6 +1063,11 @@ def main() -> int:
 
     # ---- phase 11: scene gradients and the rays x samples split ----
     gradients(smi[0], (sa5, st5, cfg5), tiny5)
+
+    # ---- phase 12: the frame path against the eager chunk program ----
+    frame_path(smi[0], sa, static, cfg, samples, {
+        "K1": (engine, walk, (secs4, c4, out4, g4, 0)),
+        "octet": (octet, octet_counts, (secs6, c6, out6, g6, fb6[0]))})
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks: library_ms null

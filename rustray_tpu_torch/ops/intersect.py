@@ -16,6 +16,18 @@ import torch
 INF = 3.0e38
 
 
+def device_const(values, device, dtype=torch.float32):
+    """A small constant vector made on ``device`` by fills: no copy from
+    host memory, which a CUDA graph capture refuses (and which waits for
+    the stream eagerly)."""
+    if torch.device(device).type == "cpu":
+        return torch.tensor(values, dtype=dtype)
+    out = torch.empty((len(values),), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def dot(a, b, axis=-1):
     return torch.sum(a * b, dim=axis)
 
@@ -174,3 +186,13 @@ def closest_tri(o, d, prep: TrianglePrep, tri_ok, tile: int,
         return (torch.full((0,), INF, device=o.device),
                 torch.zeros((0,), dtype=torch.int32, device=o.device))
     return torch.cat(out_t), torch.cat(out_i)
+
+
+def tri_barycentrics(o, d, t, tri_idx, prep: TrianglePrep):
+    """Recompute (u, v) and d·n for winning triangles (per-ray gather)."""
+    tri = tri_idx.long()
+    p = o + t[:, None] * d
+    u = dot(p, prep.g1[tri]) + prep.c1[tri]
+    v = dot(p, prep.g2[tri]) + prep.c2[tri]
+    d_n = dot(d, prep.n[tri])
+    return u, v, d_n

@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from .. import graphs
 from .block_trace import KERNEL_K, slab_test
 from .intersect import INF
 
@@ -48,7 +49,8 @@ _LANES = 32            # lanes of the warp that takes an octet
 launches = {1: 0, _R1_SLOTS: 0}
 # round calls per slot count (twin or kernel), and the block-walk fallback:
 # its calls and the rays it re-traced (a device tensor once a fallback ran,
-# so counting costs no host sync)
+# so counting costs no host sync; added to in place, so that a captured
+# graph adds to it at every replay)
 rounds = {1: 0, _R1_SLOTS: 0}
 fallback = {"calls": 0, "rays": 0}
 
@@ -57,7 +59,28 @@ def reset_counts() -> None:
     for k in launches:
         launches[k] = 0
         rounds[k] = 0
-    fallback["calls"] = fallback["rays"] = 0
+    fallback["calls"] = 0
+    if isinstance(fallback["rays"], torch.Tensor):
+        fallback["rays"].zero_()
+    else:
+        fallback["rays"] = 0
+
+
+def rays_accumulator(device) -> None:
+    """Make ``fallback["rays"]`` an int64 tensor on ``device`` (before a
+    capture: a graph adds to the tensor it was captured with)."""
+    r = fallback["rays"]
+    if not (isinstance(r, torch.Tensor) and r.device == torch.device(device)):
+        fallback["rays"] = torch.full((), int(r), dtype=torch.int64,
+                                      device=device)
+
+
+def _count_fallback_rays(n) -> None:
+    r = fallback["rays"]
+    if isinstance(r, torch.Tensor) and r.device == n.device:
+        r.add_(n)
+    else:
+        fallback["rays"] = r + n
 
 
 # --------------------------------------------------------------------------
@@ -490,10 +513,11 @@ def _trace_slice(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok, K, mode,
     # octets with more than _R1_SLOTS filtered clusters left re-trace
     # through the always-complete block walk (rare; exactness is kept);
     # the one host sync decides whether it runs, as the JAX lax.cond does
+    # (a captured graph always runs it: no ray over walks nothing)
     over_r = over.repeat_interleave(8) & alive
-    if bool(over_r.any()):
+    if graphs.any_live(over_r):
         fallback["calls"] += 1
-        fallback["rays"] = fallback["rays"] + over_r.sum()
+        _count_fallback_rays(over_r.sum())
         _, fb_i, fb_t = trace_tris_blocks(o, d, over_r, t_max, prep, w_lo,
                                           w_hi, cl_ok, K, block_n=block_n,
                                           mode=mode, interpret=interpret)
@@ -546,8 +570,9 @@ def trace_tris_octets(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok,
     for s0 in range(0, n + pad, sl):
         s1 = s0 + sl
         a_sl = alive[s0:s1]
-        # a slice with no live ray is skipped outright
-        if bool(a_sl.any()):
+        # a slice with no live ray is skipped outright (not in a captured
+        # graph: its dead rays find nothing)
+        if graphs.any_live(a_sl):
             f, i, t = _trace_slice(o[s0:s1], d[s0:s1], a_sl, t_max[s0:s1],
                                    prep, w_lo, w_hi, cl_ok, cluster_size,
                                    mode, block_n, interpret)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .intersect import device_const
+
 CAM_CLIPPING_PLANE_DIST = 1.0
 APERTURE_BASE_RESOLUTION = 800.0
 
@@ -27,14 +29,26 @@ def _homog(v3, w: float):
     return torch.cat([v3[..., :3], torch.full_like(v3[..., :1], w)], dim=-1)
 
 
+def _cell_f32(i):
+    """A sample-cell index as a float32 factor: an int, or a 0-dim integer
+    tensor on the rays' device (a graph input); the same value either way."""
+    if isinstance(i, torch.Tensor):
+        return i.to(torch.float32)
+    return float(i)
+
+
 def primary_rays(cam, width, height, px, py, x_i, y_i, cell_size,
                  aperture_size, focal_length, samples):
     """One AA sample's rays for pixel coords (px, py) (N,) int32; x_i/y_i
-    are integer sample-cell indices.  Returns (origin (N,3), dir (N,3)
-    unnormalized)."""
+    are integer sample-cell indices, ints or 0-dim integer tensors on the
+    rays' device.  Returns (origin (N,3), dir (N,3) unnormalized).  Every
+    constant is made on the device, so the rays can be captured in a CUDA
+    graph; 0-dim tensors keep the divisions true divisions (a divisor that
+    is a Python scalar becomes a multiplication by its reciprocal on
+    CUDA)."""
     dev = px.device
-    w = torch.tensor(float(width), device=dev)
-    h = torch.tensor(float(height), device=dev)
+    w = torch.full((), float(width), device=dev)
+    h = torch.full((), float(height), device=dev)
     x_f = px.to(torch.float32)
     y_f = py.to(torch.float32)
     x_step = 2.0 / w
@@ -42,16 +56,16 @@ def primary_rays(cam, width, height, px, py, x_i, y_i, cell_size,
 
     dof = (aperture_size > 1.0) and (focal_length > 1.0)
 
-    inv_cell = torch.tensor(1.0 / float(cell_size), device=dev)
-    x_trans = x_step * float(x_i) * inv_cell
-    y_trans = y_step * float(y_i) * inv_cell
+    inv_cell = torch.full((), 1.0 / float(cell_size), device=dev)
+    x_trans = x_step * _cell_f32(x_i) * inv_cell
+    y_trans = y_step * _cell_f32(y_i) * inv_cell
     if dof and samples > 1:
         x_trans = x_trans - x_step / 2.0
         y_trans = y_trans - y_step / 2.0
 
     proj_inv = cam.proj_inv
     view_inv = cam.view_inv
-    eye = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    eye = device_const((0.0, 0.0, 0.0, 1.0), dev)
 
     if dof:
         aperture_scale = w / APERTURE_BASE_RESOLUTION

@@ -12,7 +12,7 @@ import math
 import torch
 
 from .. import rng
-from .intersect import cross, dot, safe_normalize
+from .intersect import cross, device_const, dot, safe_normalize
 
 SHADOW_BIAS = 1e-3
 PI = math.pi
@@ -75,8 +75,8 @@ def jitter(key, direction, spread):
     empty z-range returns the direction unchanged."""
     b3 = safe_normalize(direction)
     use_x = torch.abs(b3[..., 0]) < 0.5
-    ex = torch.tensor([1.0, 0.0, 0.0], device=direction.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=direction.device)
+    ex = device_const((1.0, 0.0, 0.0), direction.device)
+    ey = device_const((0.0, 1.0, 0.0), direction.device)
     diff = torch.where(use_x[..., None], ex, ey)
     b1 = safe_normalize(cross(b3, diff))
     b2 = cross(b1, b3)
@@ -96,3 +96,8 @@ def jitter(key, direction, spread):
     empty = z_lo >= 1.0
     keep = (spread <= 0.0) | empty
     return torch.where(keep[..., None], direction, new_dir)
+
+
+def gamma_encode(linear):
+    """src/raytracing.rs:231-235."""
+    return torch.pow(torch.clamp(linear, min=0.0), 1.0 / 2.2)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .intersect import device_const
+
 _DEFAULT_RGBA = (0.0, 0.0, 0.0, 1.0)
 
 
@@ -109,7 +111,7 @@ def get_tex_color(sa, mat_idx, tex_type: int, uv):
         (mats.tex_nearest[m] != 0)[..., None],
         sample_nearest(sa.tex_texels, offset, w_safe, h_safe, u, v),
         sample_bilinear(sa.tex_texels, offset, w_safe, h_safe, u, v))
-    default = torch.tensor(_DEFAULT_RGBA, device=uv.device)
+    default = device_const(_DEFAULT_RGBA, uv.device)
     return torch.where(has[..., None], rgba, default), has
 
 
@@ -136,5 +138,5 @@ def get_tex_color_rows(sa, mat_i, tex_type: int, uv, static):
     else:
         rgba = _sample_bilinear_pairs(sa.tex_pairs, offset, w_safe, h_safe,
                                       u, v)
-    default = torch.tensor(_DEFAULT_RGBA, device=uv.device)
+    default = device_const(_DEFAULT_RGBA, uv.device)
     return torch.where(has[..., None], rgba, default), has

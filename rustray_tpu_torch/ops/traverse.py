@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import graphs
 from ..scene.material import TextureType
 from .intersect import (INF, TrianglePrep, closest_tri, dot, safe_normalize,
                         sphere_cast, sphere_hit_normal, transform_dir,
@@ -288,8 +289,9 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
             cl_ok = sa.cl_valid & inst_ok[sa.cl_inst.long()]
             alive_f = alive if alive is not None else torch.ones(
                 (n,), dtype=torch.bool, device=dev)
-            # an all-dead wavefront skips its traversal outright
-            if bool(alive_f.any()):
+            # an all-dead wavefront skips its traversal outright (not in a
+            # captured graph, which walks it: the same outputs)
+            if graphs.any_live(alive_f):
                 found, tri_idx, t_sel = _sorted_mesh_trace(
                     sa, static, prep, o, d, alive_f, t_max, tri_ok, cl_ok,
                     accel_boxes, accel_impl, accel_block, accel_gather,

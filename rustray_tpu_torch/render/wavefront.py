@@ -10,8 +10,12 @@ and the threefry keys (``fold_in`` of chunk start, sample cell, depth, and
 17/23 for roughness/shadow jitter) are the JAX package's, so a port render
 matches a JAX render of the same scene.
 
-Frames render as a host loop over pixel chunks, with checkpoint/resume
-and a progressive preview.  Mesh traversal is the dense scan or a
+A frame renders as the JAX package's device loop (every chunk per group
+of ``samples_per_dispatch`` sample cells, one fetch of the counts per
+group) or, with checkpoint/resume or a progressive preview, chunk by
+chunk.  Either runs the chunk program as CUDA graphs on the card when a
+kernel walks the mesh (:func:`make_chunk_renderer`), eagerly otherwise.
+Mesh traversal is the dense scan or a
 coherence-sorted cluster walk: on CUDA scene tensors (or under
 ``pallas_interpret``) a kernel, the block walk (ops/block_trace) or, with
 ``pallas_algo="octet"``, the octet rounds (ops/octet_trace); otherwise the
@@ -21,19 +25,21 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict
 
 import numpy as np
 import torch
 
-from .. import rng
+from .. import graphs, rng
 from ..config import EngineConfig, RaytracingConfig
 from ..ops import rays as rays_ops
 from ..ops import shade as shade_ops
 from ..ops import texture as tex_ops
 from ..ops.block_trace import pack_cluster_tris
 from ..ops.cluster_trace import world_cluster_aabbs
-from ..ops.intersect import INF, cross, dot, prepare_triangles, safe_normalize
+from ..ops.intersect import (INF, cross, device_const, dot, prepare_triangles,
+                             safe_normalize)
 from ..ops.traverse import (MF_ALPHA, MF_AMBIENT, MF_BASE, MF_NM_STRENGTH,
                             MF_REFLECTIVITY, MF_REFR_INDEX, MF_ROUGHNESS,
                             MF_SHADOW_SOFT, MF_SHININESS, MF_SPEC,
@@ -99,8 +105,8 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     if static.has_normal_tex:
         ntex, has_nt = tex_ops.get_tex_color_rows(
             sa, mat_i, int(TextureType.Normal), uv, static)
-        up = torch.tensor([0.0, 1.0, 0.0], device=dev)
-        fwd = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        up = device_const((0.0, 1.0, 0.0), dev)
+        fwd = device_const((0.0, 0.0, 1.0), dev)
         tangent = cross(surface_normal, up.expand_as(surface_normal))
         tl = shade_ops.safe_sqrt(torch.sum(tangent * tangent, dim=-1), 1e-30)
         tangent = torch.where((tl <= 1e-4)[..., None],
@@ -243,7 +249,7 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     # ---- fog / AO / ambient (src/raytracing.rs:977-994) ----
     t_safe = torch.where(hit.hit, hit.t, 0.0)
     fog = torch.clamp(float(np.float32(cfg.fog_density)) * t_safe, max=1.0)
-    fog_color = torch.tensor(cfg.fog_color, dtype=torch.float32, device=dev)
+    fog_color = device_const(tuple(cfg.fog_color), dev)
     ao_tex, has_ao = _tex_scalar(sa, static, mat_i,
                                  TextureType.AmbientOcclusion, uv)
     ao = torch.where(has_ao, ao_tex, 1.0)
@@ -308,7 +314,7 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
     cap = int(max(n, round(n * engine.queue_factor)))
     o, d = rays_ops.primary_rays(
         sa.camera, static.width, static.height, px, py,
-        int(cell[0]), int(cell[1]), sample_cell_size(cfg.samples),
+        cell[0], cell[1], sample_cell_size(cfg.samples),
         cfg.aperture_size, cfg.focal_length, cfg.samples)
 
     weight = torch.ones((n, 3), device=dev)
@@ -321,7 +327,9 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
     for depth in range(1, n_levels + 1):
         lkey = rng.fold_in(key, depth)
         # an all-dead level contributes nothing: skip its trace and shade
-        if depth == 1 or bool(alive.any()):
+        # (not in a captured graph, which shades its dead rays: every
+        # output is masked by alive, so the sums are the same)
+        if depth == 1 or graphs.any_live(alive):
             emission, aov, ch = _shade_level(sa, static, prep, cfg, o, d,
                                              weight, alive, depth, lkey,
                                              boxes, engine)
@@ -400,40 +408,247 @@ def build_chunk_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
     the last valid cell's; dropped and traced are 0-dim int64 tensors.
     It runs under autograd unless its caller turns gradients off."""
 
-    def sample(sa, prep, boxes, px, py, valid, cell, idx, key):
-        return render_sample(sa, static, prep, cfg, engine, n_levels, boxes,
-                             px, py, valid, cell, rng.fold_in(key, int(idx)))
+    def chunk_fn(sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
+                 key):
+        samples = (render_sample(sa, static, prep, cfg, engine, n_levels,
+                                 boxes, px, py, valid, cell,
+                                 rng.fold_in(key, int(idx)))
+                   for cell, idx, cv in zip(cells, cell_idx, cell_valid)
+                   if bool(cv))
+        return _reduce_cells(len(cells), samples, px.shape[0], px.device)
 
-    def zeros(n, dev):
-        # one tensor per output: callers reduce them in place
-        return (torch.zeros((n, 3), device=dev), torch.zeros((n,), device=dev),
-                torch.zeros((n, 3), device=dev),
-                torch.zeros((n,), dtype=torch.int32, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
+    return chunk_fn
+
+
+def _reduce_cells(n_cells: int, samples, n: int, dev, keep=None):
+    """The chunk program's reduction over its sample cells: ``samples``
+    yields each valid cell's :func:`render_sample` outputs in cell order.
+    One cell's outputs come back as they are (``keep``, e.g. a copy, is
+    applied to them), several are summed from zeros in cell order, and the
+    object id is the last valid cell's (zeros when no cell is valid)."""
+    keep = keep or (lambda x: x)
+    # one tensor per output: callers reduce them in place
+    sums = [torch.zeros((n, 3), device=dev), torch.zeros((n,), device=dev),
+            torch.zeros((n, 3), device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev)]
+    for out in samples:
+        if n_cells == 1:
+            return tuple(keep(x) for x in out)
+        for k in (0, 1, 2, 4, 5):
+            sums[k] = sums[k] + out[k]
+        sums[3] = keep(out[3])
+    return tuple(sums)
+
+
+# False runs the chunk program eagerly on every device (the eager frame that
+# chip_smoke.py holds the captured one against); read at call time
+_CAPTURE = True
+# captures of the chunk program and its replays since reset_graph_stats():
+# counts and the seconds of every capture (warm-up and capture, from a
+# synchronized start to a synchronized end)
+graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
+
+
+def reset_graph_stats() -> None:
+    graph_stats.update(captures=0, capture_seconds=0.0, replays=0)
+
+
+def captures(static, engine: EngineConfig, device) -> bool:
+    """Whether the chunk program runs as CUDA graphs: on CUDA tensors when
+    a kernel walks the mesh (K1, K2, or K3 with its K1 fallback).  The
+    dense scan, the XLA cluster walk (its rounds loop on the host) and the
+    kernels' twins run eagerly."""
+    device = torch.device(device)
+    return (_CAPTURE and device.type == "cuda" and not engine.pallas_interpret
+            and engine.use_pallas(static, device))
+
+
+def _capture_graph(fn, pool):
+    """Capture ``fn()`` in a CUDA graph over ``pool``; returns (its
+    outputs, the graph's replay)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        out = fn()
+    return out, graph.replay
+
+
+def _warm_up(fn, dev) -> None:
+    """Run ``fn()`` eagerly as a capture records it, on a side stream (so
+    every kernel the graph launches is loaded before the capture)."""
+    with graphs.unconditional():
+        if dev.type != "cuda":
+            fn()
+            return
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _SampleGraph:
+    """One sample of one chunk, captured: the primary rays, every level and
+    the backward fold in a CUDA graph over static input buffers (pixels,
+    validity, the sample cell and its key words).  The graph reads the
+    scene tensors it was captured with, and replays over no others."""
+
+    def __init__(self, static, cfg: RaytracingConfig, engine: EngineConfig,
+                 n_levels: int, pool):
+        self.args = (static, cfg, engine, n_levels)
+        self.pool = pool
+        self.bound = None       # (sa, prep, boxes) of the capture
+
+    def _capture(self, sa, prep, boxes, ins):
+        from ..ops import octet_trace
+        static, cfg, engine, n_levels = self.args
+        dev = ins[0].device
+        self.inputs = tuple(x.clone() for x in ins)
+
+        def sample():
+            return render_sample(sa, static, prep, cfg, engine, n_levels,
+                                 boxes, *self.inputs)
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        octet_trace.rays_accumulator(dev)
+        _warm_up(sample, dev)
+        before = graphs.snapshot()
+        self.outputs, self.replay = _capture_graph(sample, self.pool)
+        after = graphs.snapshot()
+        graphs.restore(before)
+        _sync(dev)
+        self.delta = [a - b for a, b in zip(after, before)]
+        self.bound = (sa, prep, boxes)
+        graph_stats["captures"] += 1
+        graph_stats["capture_seconds"] += time.perf_counter() - t0
+
+    def run(self, sa, prep, boxes, px, py, valid, cells, keys, cell_valid):
+        """:func:`build_chunk_fn`'s outputs for cells (S, 2) and their keys
+        (S, 2), int64 tensors on the chunk's device: one replay per valid
+        cell, reduced in cell order."""
+        if self.bound is None:
+            self._capture(sa, prep, boxes, (px, py, valid, cells[0], keys[0]))
+        elif any(a is not b for a, b in zip(self.bound, (sa, prep, boxes))):
+            raise ValueError("a captured chunk program replays only over the "
+                             "scene tensors it was captured with")
+        for buf, x in zip(self.inputs, (px, py, valid)):
+            buf.copy_(x)
+
+        def replays():
+            for i, cv in enumerate(cell_valid):
+                if not cv:
+                    continue
+                self.inputs[3].copy_(cells[i])
+                self.inputs[4].copy_(keys[i])
+                self.replay()
+                graphs.add(self.delta)
+                graph_stats["replays"] += 1
+                yield self.outputs
+
+        return _reduce_cells(len(cell_valid), replays(), px.shape[0],
+                             px.device, keep=torch.clone)
+
+
+def _upload(a, dev):
+    """A host array as an int64 tensor on ``dev``, copied without waiting
+    for the stream (pinned memory on CUDA)."""
+    t = torch.as_tensor(np.asarray(a, dtype=np.int64))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def make_chunk_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
+                        n_levels: int, pool=None):
+    """The chunk program of :func:`build_chunk_fn`, with its signature and
+    outputs, run as a CUDA graph where :func:`captures` says so: the first
+    call captures one sample of the chunk after an eager warm-up, and every
+    call replays it once per valid cell.  Elsewhere it is
+    :func:`build_chunk_fn`, run eagerly.
+
+    The graph's memory comes from ``pool`` (a ``graph_pool_handle`` that
+    graphs replayed one after another may share; None: a private pool).
+    Its outputs equal build_chunk_fn's bit for bit; its kernels run on
+    all-dead work where build_chunk_fn skips it (:mod:`..graphs`)."""
+    eager = build_chunk_fn(static, cfg, engine, n_levels)
+    graph = _SampleGraph(static, cfg, engine, n_levels, pool)
 
     def chunk_fn(sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
                  key):
-        if len(cells) == 1:
-            if not bool(cell_valid[0]):
-                return zeros(px.shape[0], px.device)
-            return sample(sa, prep, boxes, px, py, valid, cells[0],
-                          cell_idx[0], key)
-        c_sum, d_sum, n_sum, obj_id, dropped, traced = zeros(px.shape[0],
-                                                             px.device)
-        for cell, idx, cv in zip(cells, cell_idx, cell_valid):
-            if not bool(cv):
-                continue
-            c, dpt, nrm, obj_id, dr, tr = sample(sa, prep, boxes, px, py,
-                                                 valid, cell, idx, key)
-            c_sum = c_sum + c
-            d_sum = d_sum + dpt
-            n_sum = n_sum + nrm
-            dropped = dropped + dr
-            traced = traced + tr
-        return c_sum, d_sum, n_sum, obj_id, dropped, traced
+        dev = px.device
+        if not captures(static, engine, dev):
+            return eager(sa, prep, boxes, px, py, valid, cells, cell_idx,
+                         cell_valid, key)
+        keys = [rng.fold_in(key, int(i)).numpy() for i in cell_idx]
+        return graph.run(sa, prep, boxes, px, py, valid, _upload(cells, dev),
+                         _upload(keys, dev), [bool(v) for v in cell_valid])
 
     return chunk_fn
+
+
+def _frame_fn(chunk_fn, static, chunk: int, n_chunks: int):
+    """Every chunk of the frame through ``chunk_fn``, in order, with no
+    host sync of its own (the JAX package's chunk ``scan``)."""
+    W, H = static.width, static.height
+    n_pix = W * H
+    n_pad = n_chunks * chunk
+
+    def frame_fn(sa, prep, boxes, cells, cell_idx, cell_valid, key):
+        dev = sa.verts.device
+        idx = torch.arange(n_pad, device=dev)
+        valid = (idx < n_pix).reshape(n_chunks, chunk)
+        idx_c = torch.clamp(idx, max=n_pix - 1)
+        px = (idx_c % W).to(torch.int32).reshape(n_chunks, chunk)
+        py = (idx_c // W).to(torch.int32).reshape(n_chunks, chunk)
+        color = torch.zeros((n_pad, 3), device=dev)
+        depth = torch.zeros((n_pad,), device=dev)
+        normal = torch.zeros((n_pad, 3), device=dev)
+        obj_id = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+        drops, traced = [], []
+        for ci in range(n_chunks):
+            start = ci * chunk
+            c, dpt, nrm, oid, dr, tr = chunk_fn(
+                sa, prep, boxes, px[ci], py[ci], valid[ci], cells, cell_idx,
+                cell_valid, rng.fold_in(key, start))
+            for acc, part in zip((color, depth, normal, obj_id),
+                                 (c, dpt, nrm, oid)):
+                acc[start:start + chunk] = part
+            drops.append(dr)
+            traced.append(tr)
+        return (color[:n_pix], depth[:n_pix], normal[:n_pix], obj_id[:n_pix],
+                torch.stack(drops), torch.stack(traced))
+
+    return frame_fn
+
+
+def build_frame_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
+                   n_levels: int, chunk: int, n_chunks: int):
+    """The whole-frame renderer of the JAX package's ``build_frame_fn``
+    over :func:`build_chunk_fn`, eager.
+
+    Returns f(sa, prep, boxes, cells, cell_idx, cell_valid, key) →
+    (color, depth, normal, obj_id: (W·H, …) sums over the cells,
+    drops (n_chunks,) and traced (n_chunks,): per-chunk dropped and device
+    rays, int64 tensors on the scene's device)."""
+    return _frame_fn(build_chunk_fn(static, cfg, engine, n_levels), static,
+                     chunk, n_chunks)
+
+
+def make_frame_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
+                        n_levels: int, chunk: int, n_chunks: int, pool=None):
+    """:func:`build_frame_fn` over :func:`make_chunk_renderer`: one CUDA
+    graph of the chunk program (where :func:`captures` says so), replayed
+    for every chunk and cell.  Nothing is cached across calls: a graph
+    reads the tensors of the frame it was captured for."""
+    return _frame_fn(make_chunk_renderer(static, cfg, engine, n_levels, pool),
+                     static, chunk, n_chunks)
 
 
 def frame_levels(sa, cfg: RaytracingConfig) -> int:
@@ -490,7 +705,11 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
     uninterrupted result bit for bit; the file is removed once the frame
     completes.  ``max_chunks``: render at most this many chunks and return
     the partial frame.  ``preview_path``: write the partial frame as a PNG
-    after every ``preview_every``-th chunk and after the last one."""
+    after every ``preview_every``-th chunk and after the last one.  Any of
+    the three renders chunk by chunk; without them the frame renders as
+    the JAX package's device loop (:func:`make_frame_renderer`).  The
+    frame's CUDA graphs (:func:`make_chunk_renderer`, one per queue factor)
+    live as long as the call: they read its scene tensors."""
     engine = engine or EngineConfig()
     dev = sa.verts.device
     W, H = static.width, static.height
@@ -536,29 +755,34 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
 
     cell_idx = np.arange(cells.shape[0])
     cell_valid = np.ones(cells.shape[0], bool)
+    # the frame's chunk programs, one per queue factor; on CUDA their graphs
+    # share one memory pool, replayed one factor after another
+    pool = torch.cuda.graph_pool_handle() \
+        if captures(static, engine, dev) else None
+    renderers = {}
 
     def render_chunk(start, eng):
+        fn = renderers.get(eng.queue_factor)
+        if fn is None:
+            fn = renderers[eng.queue_factor] = make_chunk_renderer(
+                static, cfg, eng, n_levels, pool)
         idx = torch.arange(start, start + chunk, device=dev)
         valid = idx < n_pix
         idx_c = torch.clamp(idx, max=n_pix - 1)
         px = (idx_c % W).to(torch.int32)
         py = (idx_c // W).to(torch.int32)
-        *out, drops, traced = build_chunk_fn(static, cfg, eng, n_levels)(
-            sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
-            rng.fold_in(key, start))
+        *out, drops, traced = fn(sa, prep, boxes, px, py, valid, cells,
+                                 cell_idx, cell_valid, rng.fold_in(key, start))
         return out, int(drops), int(traced)
 
-    # every chunk first renders at the engine's own queue factor; the raised
-    # factor carries forward across chunks' re-renders (a scene that
-    # overflows once overflows again) and is restored on resume, so that a
-    # resumed frame equals the uninterrupted one in every key.  (The JAX
-    # package first renders a resumed frame's chunks at the raised factor.)
-    starts = list(range(cursor, n_pix, chunk))
-    if max_chunks is not None:
-        starts = starts[:max_chunks]
-    for done, start in enumerate(starts, 1):
-        out, n_drop, traced = render_chunk(start, engine)
-        device_rays += traced
+    def raise_and_rerender(start, n_drop):
+        """Re-render a chunk that dropped ``n_drop`` live rays, with the
+        full sample set, at the carried factor doubled until nothing drops
+        or the factor reaches its cap, counting every attempt's rays and
+        the rays still dropped.  Returns the last attempt's outputs, None
+        when none ran."""
+        nonlocal eng, device_rays, dropped_rays
+        out = None
         while n_drop > 0 and eng.queue_factor < max_qf:
             new_qf = min(eng.queue_factor * 2.0, max_qf)
             print(f"info: {n_drop} live secondary rays beyond "
@@ -572,9 +796,58 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
                   f"queue_factor={eng.queue_factor} (cap {max_qf}); image "
                   f"may deviate from the full Whitted tree")
             dropped_rays += n_drop
+        return out
+
+    def put_chunk(start, out):
         nv = min(chunk, n_pix - start)
         for acc, part in zip((color, depth, normal, obj_id), out):
             acc[start:start + nv] = part[:nv]
+
+    # every chunk first renders at the engine's own queue factor; the raised
+    # factor carries forward across chunks' re-renders (a scene that
+    # overflows once overflows again) and is restored on resume, so that a
+    # resumed frame equals the uninterrupted one in every key.  (The JAX
+    # package first renders a resumed frame's chunks at the raised factor.)
+    if checkpoint_path is None and max_chunks is None and preview_path is None:
+        # the frame path (the JAX package's device loop): every chunk of
+        # the frame per group of samples_per_dispatch cells, with one fetch
+        # of the drop and ray counts per group; group sums add into the
+        # frame in group order and the last group's object id wins
+        n_chunks = -(-n_pix // chunk)
+        frame = make_frame_renderer(static, cfg, engine, n_levels, chunk,
+                                    n_chunks, pool)
+        per = max(1, int(engine.samples_per_dispatch))
+        drops = np.zeros((n_chunks,), np.int64)
+        for g0 in range(0, len(cells), per):
+            g1 = min(g0 + per, len(cells))
+            c, dpt, nrm, oid, dr, tr = frame(sa, prep, boxes, cells[g0:g1],
+                                             cell_idx[g0:g1],
+                                             cell_valid[g0:g1], key)
+            color += c
+            depth += dpt
+            normal += nrm
+            obj_id = oid
+            counts = torch.stack([dr, tr]).cpu().numpy()
+            drops += counts[0]
+            device_rays += int(counts[1].sum())
+        # chunks that dropped live rays re-render in chunk order
+        for ci in np.nonzero(drops)[0]:
+            start = int(ci) * chunk
+            out = raise_and_rerender(start, int(drops[ci]))
+            if out is not None:
+                put_chunk(start, out)
+        return finish_frame(color, depth, normal, obj_id, cfg, W, H,
+                            device_rays, dropped_rays)
+
+    # the checkpoint/preview path: chunk by chunk, each fetched
+    starts = list(range(cursor, n_pix, chunk))
+    if max_chunks is not None:
+        starts = starts[:max_chunks]
+    for done, start in enumerate(starts, 1):
+        out, n_drop, traced = render_chunk(start, engine)
+        device_rays += traced
+        rerun = raise_and_rerender(start, n_drop)
+        put_chunk(start, out if rerun is None else rerun)
         if preview_path is not None and (done % preview_every == 0
                                          or start + chunk >= n_pix):
             _write_preview(preview_path, color.cpu().numpy(), cfg, W, H)

@@ -6,8 +6,11 @@ PRNG (``jax_threefry_partitionable=True``).  This module reproduces
 JAX render of the same scene consume the same random numbers.  uint32
 arithmetic is carried in int64 tensors masked to 32 bits.
 
-A key is an explicit int64 tensor of shape (2,) on the CPU holding the two
-uint32 key words; nothing here keeps global state.
+A key is an explicit int64 tensor of shape (2,) holding the two uint32
+key words; nothing here keeps global state.  A key on the CPU folds on the
+host; a key on a device (or a fold of tensor data) folds there, with the
+same bits, so a captured CUDA graph draws from the key in its input buffer
+rather than from words frozen at capture.
 """
 from __future__ import annotations
 
@@ -43,11 +46,21 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``: the hash of counts (0, data) under ``key``."""
-    k1, k2 = (int(k) for k in key.tolist())
-    y0, y1 = threefry2x32(k1, k2, 0, int(data) & _M32)
-    return torch.tensor([y0, y1], dtype=torch.int64)
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of counts (0, data) under ``key``.
+    ``data`` is an int or a 0-dim integer tensor; the result lies on the
+    data's device when it is a tensor, else on the key's."""
+    if key.device.type == "cpu" and not isinstance(data, torch.Tensor):
+        k1, k2 = (int(k) for k in key.tolist())
+        y0, y1 = threefry2x32(k1, k2, 0, int(data) & _M32)
+        return torch.tensor([y0, y1], dtype=torch.int64)
+    if isinstance(data, torch.Tensor):
+        key = key.to(data.device)
+        data = data.to(torch.int64) & _M32
+    else:
+        data = int(data) & _M32
+    k1, k2 = key.to(torch.int64).unbind()
+    return torch.stack(threefry2x32(k1, k2, 0, data))
 
 
 def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
@@ -56,7 +69,16 @@ def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
     Partitionable bits: element i (row-major) hashes the 64-bit counter i,
     split into (hi, lo) words, and takes the xor of the two output words;
     the top 23 bits become the mantissa of a float in [1, 2)."""
-    k1, k2 = (int(k) for k in key.tolist())
+    if key.device.type == "cpu":
+        k1, k2 = (int(k) for k in key.tolist())
+    else:
+        k1, k2 = key.to(torch.int64).unbind()
+    return uniform_words(k1, k2, shape, device)
+
+
+def uniform_words(k1, k2, shape, device) -> torch.Tensor:
+    """:func:`uniform` under key words k1, k2: ints, or 0-dim int64 tensors
+    on ``device``."""
     i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(k1, k2, i >> 32, i & _M32)
     bits = ((y0 ^ y1) >> 9) | 0x3F800000

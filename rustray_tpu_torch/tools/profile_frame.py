@@ -10,10 +10,13 @@ Renders the frame once unprofiled and once profiled (after a 320x180
 warm-up), with the bench engine settings of ``chip_smoke.py`` (chunk
 32,768, blocks of 128, queue factor 1.0): ``block`` is the block walk
 (K1), ``octet`` the octet rounds (K3), ``ungated`` the block walk with the
-pack budget forced to 0 (K2).  From the profiler's trace it prints the
-profiled wall, the device's busy time (the union of its kernel, copy and
-memset intervals), the idle share (1 - busy / profiled wall) and the
-kernels with the most device time.
+pack budget forced to 0 (K2).  ``render()`` takes its frame path, so the
+chunk program runs as CUDA graphs: each frame captures its own (a warm-up
+and a capture per queue factor) and replays them once per chunk and cell.
+It prints the captures, their seconds and the replays of each frame, and,
+from the profiler's trace, the profiled wall, the device's busy time (the
+union of its kernel, copy and memset intervals), the idle share (1 - busy /
+profiled wall) and the kernels with the most device time.
 """
 from __future__ import annotations
 
@@ -54,9 +57,34 @@ def device_summary(trace_path: str, top: int = 25):
     return busy / 1e6, [(k, s / 1e6, n) for k, (s, n) in ranked]
 
 
+def profile(fn, trace_path: str, top: int = 25):
+    """Run ``fn()`` once under torch.profiler (CPU and CUDA) and write its
+    chrome trace to ``trace_path``.  Returns (fn's result, a dict: ``wall``
+    profiled seconds, ``busy`` device seconds, ``idle`` share, ``ranked``
+    kernels as :func:`device_summary` gives them, and the chunk program's
+    ``graph`` captures, capture seconds and replays in the call)."""
+    from ..render import wavefront
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    wavefront.reset_graph_stats()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = dict(wavefront.graph_stats)
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    busy, ranked = device_summary(trace_path, top)
+    return out, dict(wall=wall, busy=busy, idle=1.0 - busy / wall,
+                     ranked=ranked, graph=stats)
+
+
 def main(argv=None) -> int:
     from ..config import EngineConfig
     from ..ops import block_trace as bt
+    from ..render import wavefront
     from ..render.wavefront import render
     from ..scene_arrays import to_torch
     from .capture_waves import load_bench_scene
@@ -90,29 +118,25 @@ def main(argv=None) -> int:
         cfg = scene.raytracing_config
         cfg.samples = samples
         torch.cuda.synchronize()
+        wavefront.reset_graph_stats()
         t0 = time.perf_counter()
         render(sa, st, cfg, engine)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            out = render(sa, st, cfg, engine)
-            torch.cuda.synchronize()
-            wall_p = time.perf_counter() - t0
+        g = dict(wavefront.graph_stats)
+        from ..build import BUILD_DIR
+        trace = os.path.join(BUILD_DIR, f"trace_{algo}.json")
+        out, p = profile(lambda: render(sa, st, cfg, engine), trace)
     finally:
         bt._VMEM_PACK_BUDGET = budget
-    from ..build import BUILD_DIR
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    trace = os.path.join(BUILD_DIR, f"trace_{algo}.json")
-    prof.export_chrome_trace(trace)
-    busy, ranked = device_summary(trace)
-    print(f"{algo}: 1280x720 {samples} spp: wall {wall:.3f} s unprofiled, "
-          f"{wall_p:.3f} s profiled; device busy {busy:.3f} s, idle share "
-          f"{1.0 - busy / wall_p:.3f}; device rays {out['device_rays']}")
-    for k, s, n in ranked:
-        print(f"  {s * 1e3:10.1f} ms {n:7d} calls {s / busy:7.2%}  {k[:90]}")
+    print(f"{algo}: 1280x720 {samples} spp: wall {wall:.3f} s unprofiled "
+          f"({g['captures']} captures in {g['capture_seconds']:.3f} s, "
+          f"{g['replays']} replays), {p['wall']:.3f} s profiled; device busy "
+          f"{p['busy']:.3f} s, idle share {p['idle']:.3f}; device rays "
+          f"{out['device_rays']}")
+    for k, s, n in p["ranked"]:
+        print(f"  {s * 1e3:10.1f} ms {n:7d} calls {s / p['busy']:7.2%}  "
+              f"{k[:90]}")
     return 0
 
 

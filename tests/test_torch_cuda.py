@@ -231,3 +231,65 @@ def test_octet_render_through_kernels_matches_block_walk(scene):
     assert frac >= 0.995, frac
     assert (o_out["object_id"] == b_out["object_id"]).mean() >= 0.995
     assert o_out["device_rays"] == b_out["device_rays"]
+
+
+FRAME_KEYS = ("image", "color", "depth", "normal", "object_id",
+              "device_rays", "dropped_rays")
+
+
+def _eager(fn):
+    """``fn()`` with the chunk program run eagerly (no CUDA graph)."""
+    from rustray_tpu_torch.render import wavefront
+    wavefront._CAPTURE = False
+    try:
+        return fn()
+    finally:
+        wavefront._CAPTURE = True
+
+
+def _assert_same_frame(a, b):
+    for k in FRAME_KEYS:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("algo", ["block", "octet"])
+def test_frame_path_replays_equal_eager(scene, algo):
+    """The frame path's CUDA graphs against the eager chunk program, bit
+    for bit, with two groups of one cell: one capture, one replay per
+    chunk and cell."""
+    from rustray_tpu_torch.render import wavefront
+    sa, static, cfg = scene
+    eng = EngineConfig(accel="on", chunk_pixels=4096, pallas_algo=algo,
+                       samples_per_dispatch=1)
+    wavefront.reset_graph_stats()
+    got = render(sa, static, cfg, eng)
+    assert wavefront.graph_stats["captures"] >= 1
+    assert wavefront.graph_stats["replays"] >= 2 * cfg.samples
+    _assert_same_frame(got, _eager(lambda: render(sa, static, cfg, eng)))
+
+
+def test_frame_path_two_scenes_one_static():
+    """Two scenes that share one static, back to back through the frame
+    path (a glass variant raises its queue factor): each equals its own
+    eager frame."""
+    outs = []
+    for glass in (True, False):
+        sc = bench_scene(grid=2, lat=10, lon=14, width=W, height=H)
+        if glass:
+            for m in sc.materials:
+                m.reflectivity, m.alpha, m.refraction_index = 0.5, 0.5, 1.5
+        sa, static = to_torch(*sc.compile(), "cuda")
+        outs.append((sa, static, sc.raytracing_config))
+    assert outs[0][1] == outs[1][1]
+    static = outs[0][1]
+    eng = EngineConfig(accel="on", chunk_pixels=2048, queue_factor=1.0)
+    frames = [render(sa, static, cfg, eng) for sa, _, cfg in outs]
+    for (sa, _, cfg), got in zip(outs, frames):
+        _assert_same_frame(got, _eager(lambda: render(sa, static, cfg, eng)))
+    assert not np.array_equal(frames[0]["color"], frames[1]["color"])
+    # the per-chunk path replays the first factor's graph after a raised
+    # factor's was captured in the same pool
+    sa, _, cfg = outs[0]
+    _assert_same_frame(render(sa, static, cfg, eng, max_chunks=3),
+                       frames[0])

@@ -98,6 +98,24 @@ def test_prepare_triangles(scene):
         _close(getattr(got, f), getattr(ref, f), rtol=1e-5, atol=1e-5)
 
 
+def test_tri_barycentrics(scene):
+    """(u, v, d·n) of winning triangles along random rays, hit or not."""
+    sa, _, sa_t, _ = scene
+    r = np.random.default_rng(11)
+    n = 300
+    o = _vec(r, (n, 3), 3.0)
+    d = _vec(r, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.abs(_vec(r, (n,), 4.0))
+    tri = r.integers(0, sa.tri_valid.shape[0], n).astype(np.int32)
+    ref = j_isect.tri_barycentrics(o, d, t, tri,
+                                   j_isect.prepare_triangles(sa))
+    got = intersect.tri_barycentrics(_t(o), _t(d), _t(t), _t(tri),
+                                     intersect.prepare_triangles(sa_t))
+    for g, rf in zip(got, ref):
+        _close(g, rf, rtol=1e-5, atol=1e-5)
+
+
 def test_sphere_cast_and_normal():
     r = np.random.default_rng(1)
     lo, ld = _vec(r, (256, 3), 3.0), _vec(r, (256, 3))
@@ -180,6 +198,13 @@ def test_shade_math():
     _close(got[0], ref[0])
     _close(got[1], ref[1], rtol=1e-5, atol=1e-5)
     _close(shade.fresnel(_t(i), _t(n), _t(idx)), j_shade.fresnel(i, n, idx))
+
+
+def test_gamma_encode():
+    """Negative, zero, in-range and above-one linear colors."""
+    lin = np.concatenate([np.linspace(-0.5, 1.5, 401, dtype=np.float32),
+                          np.float32([0.0, 1e-30, 1.0])])
+    _close(shade.gamma_encode(_t(lin)), j_shade.gamma_encode(lin))
 
 
 @pytest.mark.parametrize("shape", [(300,), (100, 3)])
