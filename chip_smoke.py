@@ -67,7 +67,17 @@ Phases (each prints its result; any failure raises and exits non-zero):
      torch.profiler (its device idle share); a glass variant of the tests'
      bench mini-scene whose queue factor 1.0 is raised twice over three
      chunks, and then the plain mini-scene sharing its static, back to
-     back, each equal to its own eager frame.
+     back, each equal to its own eager frame;
+ 13. the repo's tools (rustray_tpu_torch/tools): validate_accel at grid 3
+     with 4,096 rays and at grid 6 with 98,304 rays (camera, random and
+     half-dead batches; the dense scan, the XLA walk, the twin, K1 at
+     block_n 128, 256 and 512, K2 with the budget forced to 0 and K3, each
+     against the dense scan at the tool's thresholds and each kernel
+     against its twin bit for bit, with the octet fallback's rays);
+     kernel_probe (K1 on 98,304 primary rays of the bench frame at block_n
+     128, 256 and 512: wall and device time, work and bound); and
+     walltime_probe's split of the 1-spp bench frame (capture, argument
+     upload, dispatch, device completion, fetch).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -873,6 +883,35 @@ def frame_path(smi, sa, static, cfg, samples, frames):
           f"{time.perf_counter() - start:.1f} s ({smi})")
 
 
+def tools_phase(smi, sa, static, cfg):
+    """Phase 13: validate_accel at its defaults and at grid 6 with 98,304
+    rays (raises on MISMATCH: a walk outside the tool's thresholds or a
+    kernel not bit for bit its twin), kernel_probe's three block sizes and
+    walltime_probe on the 1-spp bench frame."""
+    from rustray_tpu_torch import EngineConfig
+    from rustray_tpu_torch.tools import (kernel_probe, validate_accel,
+                                         walltime_probe)
+    start = time.perf_counter()
+    for grid, n in ((3, 4096), (6, 98304)):
+        t0 = time.perf_counter()
+        rc = validate_accel.main(grid, n)
+        _check(rc == 0, f"phase 13: validate_accel grid {grid}, {n} rays: "
+               "MISMATCH")
+        print(f"phase 13: validate_accel grid {grid}, {n} rays: ALL OK in "
+              f"{time.perf_counter() - t0:.1f} s")
+    for row in kernel_probe.probe(sa, static):
+        _check(row["k1_device"] > 0, "phase 13: kernel_probe saw no device "
+               "time")
+    split = walltime_probe.probe(sa, static, cfg, EngineConfig(
+        queue_factor=2.0, chunk_pixels=98304), 1)
+    print(f"phase 13: walltime_probe 1 spp: capture {split['capture']:.3f} "
+          f"s, args {split['args']:.3f} s, dispatch {split['dispatch']:.3f} "
+          f"s, completion {split['completion']:.3f} s, fetch "
+          f"{split['fetch']:.3f} s; profiled again {split['profiled']:.3f} s, "
+          f"device busy {split['busy']:.3f} s; phase 13 in "
+          f"{time.perf_counter() - start:.1f} s ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1068,6 +1107,9 @@ def main() -> int:
     frame_path(smi[0], sa, static, cfg, samples, {
         "K1": (engine, walk, (secs4, c4, out4, g4, 0)),
         "octet": (octet, octet_counts, (secs6, c6, out6, g6, fb6[0]))})
+
+    # ---- phase 13: the repo's tools on the card ----
+    tools_phase(smi[0], sa, static, cfg)
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks: library_ms null

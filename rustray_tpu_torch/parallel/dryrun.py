@@ -121,20 +121,28 @@ def meshes(n: int):
     return [(n // s, s) for s in range(1, n + 1) if n % s == 0]
 
 
+def rank_device(device: str, rank: int):
+    """A rank's device: card ``rank % device_count`` on CUDA (None, with a
+    message, when there is no card); on the CPU one thread per rank, as
+    the ranks share the host's cores."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            print("--device cuda, but torch.cuda.is_available() is False; "
+                  "pass --device cpu", file=sys.stderr)
+            return None
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        return dev
+    torch.set_num_threads(1)
+    return torch.device("cpu")
+
+
 def _worker(args) -> int:
     from .shard import init_distributed, make_mesh
     from ..config import EngineConfig
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            print("dryrun: --device cuda, but torch.cuda.is_available() is "
-                  "False; pass --device cpu", file=sys.stderr)
-            return 1
-        dev = torch.device("cuda", args.rank % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
-    else:
-        # the ranks share the host's cores
-        torch.set_num_threads(1)
+    dev = rank_device(args.device, args.rank)
+    if dev is None:
+        return 1
     init_distributed(args.backend, f"tcp://localhost:{args.port}", args.n,
                      args.rank)
     try:
@@ -165,15 +173,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(args, argv) -> int:
-    """Start the N ranks and wait for them; stop them all on the first
-    failure or at the time limit."""
+def launch_ranks(module: str, argv, n: int, timeout: float) -> int:
+    """Start ``n`` processes ``python -m module *argv --rank i --port P``
+    (one per rank, joined over ``tcp://localhost:P``) from the repository
+    root and wait for them; stop them all on the first failure or after
+    ``timeout`` seconds.  Returns the first failing exit code, 124 at the
+    time limit, else 0."""
     port = _free_port()
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "rustray_tpu_torch.parallel.dryrun", *argv,
-         "--rank", str(i), "--port", str(port)], cwd=ROOT)
-        for i in range(args.n)]
-    deadline = time.monotonic() + args.timeout
+        [sys.executable, "-m", module, *argv, "--rank", str(i), "--port",
+         str(port)], cwd=ROOT)
+        for i in range(n)]
+    deadline = time.monotonic() + timeout
     try:
         while True:
             codes = [p.poll() for p in procs]
@@ -183,7 +194,7 @@ def _launch(args, argv) -> int:
             if all(c == 0 for c in codes):
                 return 0
             if time.monotonic() > deadline:
-                print(f"dryrun: ranks still running after {args.timeout} s",
+                print(f"{module}: ranks still running after {timeout} s",
                       file=sys.stderr)
                 return 124
             time.sleep(0.1)
@@ -192,6 +203,26 @@ def _launch(args, argv) -> int:
             if p.poll() is None:
                 p.kill()
             p.wait()
+
+
+def ranks_result(module: str, argv, n: int, timeout: float):
+    """:func:`launch_ranks` with ``--result PATH`` appended, PATH a fresh
+    file in the build directory that rank 0 writes as JSON.  Returns
+    (exit code, the parsed result or None)."""
+    import json
+    import tempfile
+    from ..build import BUILD_DIR
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="ranks", suffix=".json",
+                                dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        rc = launch_ranks(module, [*argv, "--result", path], n, timeout)
+        with open(path) as f:
+            text = f.read()
+    finally:
+        os.remove(path)
+    return rc, (json.loads(text) if rc == 0 and text else None)
 
 
 def main(argv=None) -> int:
@@ -215,7 +246,8 @@ def main(argv=None) -> int:
     if args.backend is None:
         args.backend = "nccl" if args.device == "cuda" else "gloo"
     if args.rank is None:
-        return _launch(args, argv)
+        return launch_ranks("rustray_tpu_torch.parallel.dryrun", argv,
+                            args.n, args.timeout)
     return _worker(args)
 
 

@@ -21,40 +21,13 @@ profiled wall) and the kernels with the most device time.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def device_summary(trace_path: str, top: int = 25):
-    """(busy seconds, [(name, seconds, calls)] by device time) from a
-    chrome trace written by torch.profiler."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = []
-    by_name = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
-            continue
-        t0, dur = float(e["ts"]), float(e.get("dur", 0.0))
-        spans.append((t0, t0 + dur))
-        s, n = by_name.get(e["name"], (0.0, 0))
-        by_name[e["name"]] = (s + dur, n + 1)
-    spans.sort()
-    busy, end = 0.0, -1e300
-    for t0, t1 in spans:
-        if t1 <= end:
-            continue
-        busy += t1 - max(t0, end)
-        end = t1
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return busy / 1e6, [(k, s / 1e6, n) for k, (s, n) in ranked]
+from .devbench import device_or_exit, device_summary
 
 
 def profile(fn, trace_path: str, top: int = 25):
@@ -93,13 +66,7 @@ def main(argv=None) -> int:
     samples = int(argv[1]) if len(argv) > 1 else 1
     if algo not in ("block", "octet", "ungated"):
         raise SystemExit(f"profile_frame: unknown path {algo!r}")
-    if not torch.cuda.is_available():
-        print("profile_frame: needs a CUDA card", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi)
+    device_or_exit("profile_frame", "cuda")
     engine = EngineConfig(chunk_pixels=32768, pallas_block=128,
                           queue_factor=1.0)
     if algo == "octet":

@@ -95,6 +95,57 @@ def test_kernel_matches_twin(scene, gated):
             assert torch.equal(v_k, v_p)
 
 
+def _tool_batches(sa, n=4096):
+    """validate_accel's random and half-dead batches, drawn as the tool
+    draws them (after its camera batch)."""
+    from rustray_tpu_torch.tools.validate_accel import _batch
+    rng = np.random.default_rng(0)
+    _batch("camera", rng, n, sa, "cuda")
+    return [_batch(k, rng, n, sa, "cuda") for k in ("random", "halfdead")]
+
+
+def test_k1_block512_matches_twin(scene):
+    """K1 at block_n 512 (pass A's pair compaction at 128 pairs per stage,
+    its shared memory at 128 KB) on random and half-dead rays: t, winners
+    and visited entries equal to the twin's, both modes."""
+    sa, static, _ = scene
+    prep, (w_lo, w_hi) = prepare_frame(sa, static,
+                                       EngineConfig(accel="on"))
+    for o, d, alive in _tool_batches(sa):
+        lists = bt.prepare_walk(o, d, alive, None, w_lo, w_hi, sa.cl_valid,
+                                512)
+        for mode in ("closest", "any"):
+            t_k, i_k, v_k = bt.block_walk(*lists, prep.pallas_pack, mode,
+                                          return_visited=True)
+            t_p, i_p, v_p = bt.block_walk(*lists, prep.pallas_pack, mode,
+                                          interpret=True,
+                                          return_visited=True)
+            torch.cuda.synchronize()
+            found = t_p < INF
+            assert torch.equal(t_k, t_p) and torch.equal(v_k, v_p)
+            assert torch.equal(i_k[found], i_p[found])
+
+
+def test_octets_on_random_rays_match_twin(scene):
+    """K3 (trace_tris_octets, with its K1 fallback) on the random batch:
+    t bit for bit and the same winners as the twin."""
+    sa, static, _ = scene
+    prep, (w_lo, w_hi) = prepare_frame(sa, static,
+                                       EngineConfig(accel="on"))
+    o, d, alive = _tool_batches(sa)[0]
+    before = ot.launches[1]
+    f_k, i_k, t_k = ot.trace_tris_octets(o, d, alive, None, prep, w_lo,
+                                         w_hi, sa.cl_valid,
+                                         static.cluster_size)
+    assert ot.launches[1] > before
+    f_p, i_p, t_p = ot.trace_tris_octets(o, d, alive, None, prep, w_lo,
+                                         w_hi, sa.cl_valid,
+                                         static.cluster_size, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(f_k, f_p)
+    assert torch.equal(i_k[f_p], i_p[f_p])
+
+
 @pytest.mark.parametrize("slots", [1, 4])
 def test_octet_round_matches_twin(scene, slots):
     """The fused round kernels against their twins, exactly: round 0

@@ -27,6 +27,17 @@ import rustray_tpu_torch.render.picking
 import rustray_tpu_torch.ops.cluster_trace
 import rustray_tpu_torch.parallel.shard
 import rustray_tpu_torch.parallel.dryrun
+import rustray_tpu_torch.tools.validate_accel
+import rustray_tpu_torch.tools.devbench
+import rustray_tpu_torch.tools.kernel_probe
+import rustray_tpu_torch.tools.walltime_probe
+import rustray_tpu_torch.tools.labs
+import rustray_tpu_torch.tools.traversal_lab
+import rustray_tpu_torch.tools.octet_lab
+import rustray_tpu_torch.tools.binning_lab
+import rustray_tpu_torch.tools.gather_bench
+import rustray_tpu_torch.tools.scaling_bench
+import rustray_tpu_torch.tools.ici_ratio
 bad =sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',
                                     'rustray_tpu'))
