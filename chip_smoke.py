@@ -77,7 +77,24 @@ Phases (each prints its result; any failure raises and exits non-zero):
      kernel_probe (K1 on 98,304 primary rays of the bench frame at block_n
      128, 256 and 512: wall and device time, work and bound); and
      walltime_probe's split of the 1-spp bench frame (capture, argument
-     upload, dispatch, device completion, fetch).
+     upload, dispatch, device completion, fetch);
+ 14. the renderer cache across frames (render/wavefront._RENDERER_CACHE):
+     (a) from an empty cache, RenderSession(animate=True) on the card over
+     a 3-frame animation of the bench scene at 1280x720, 1 spp (a scene
+     JSON in a temporary directory: the bench GLB, one ball rising, fps 3,
+     keyframes at 0 and 1000 ms): one capture per queue factor for the
+     whole session, each frame equal bit for bit to the eager frame
+     program on its scene, 0 dropped rays, frames 1 and 2 moved against
+     frame 0, with each frame's compile, render() and capture seconds;
+     (b) the 1-spp bench frame twice through render() on K1, the octet
+     path (K3 with its K1 fallback) and K2 (budget forced to 0): the
+     second call captures nothing, replays and launches as the first
+     (less its warm-up) and equals it and the eager frame; (c) a light's
+     intensity halved in place in the same tensor: the next render() sees
+     it and equals the eager render; (d) the glass mini-scene at two chunk
+     sizes, A, B, A, each equal to a fresh render of its key, the third
+     with no capture; (e) the memory reserved after a render and after
+     _RENDERER_CACHE.clear() and empty_cache().
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -912,6 +929,257 @@ def tools_phase(smi, sa, static, cfg):
           f"{time.perf_counter() - start:.1f} s ({smi})")
 
 
+def _chunk_programs():
+    """The cached chunk programs (not the frame programs, pools or scene
+    buffers) and their queue factors (the JAX key's 11th item)."""
+    from rustray_tpu_torch.render import wavefront
+    keys = [k for k in wavefront._RENDERER_CACHE
+            if k[0] not in ("pool", "scene") and k[-3] != "frame"]
+    return len(keys), sorted({k[10] for k in keys})
+
+
+def _launches_with_warm_up(first, second, g1):
+    """Whether ``first``'s launch counts are ``second``'s plus the eager
+    warm-up before each of ``first``'s captures: with one capture, a
+    warm-up launches what one replay does."""
+    r = g1["replays"]
+    if g1["captures"] == 0:
+        return first == second
+    if g1["captures"] == 1:
+        return all(first[k][m] * r == second[k][m] * (r + 1)
+                   for k in first for m in first[k])
+    return all(first[k][m] >= second[k][m] for k in first for m in first[k])
+
+
+def animated_session(smi):
+    """Phase 14 (a): a 3-frame animation of the bench scene through
+    RenderSession on the card, from an empty cache."""
+    import json
+    import tempfile
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import render as render_fn
+    from rustray_tpu_torch import run as run_mod
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.render import wavefront
+    glb = os.path.join(ROOT, "data", "bench", "sponza_class_g6_52x68.glb")
+    # one ball (of 36) rises 1.5 units over the animation; the gltf object
+    # has no name, so its items keep their mesh names
+    move = [{"time": t, "objects": [{"name": "ball2_3", "transformation": {
+        "translation": {"x": 0.0, "y": y, "z": 0.0}}}]}
+        for t, y in ((0, 0.0), (1000, 1.5))]
+    spec = {"name": "SponzaClassAnimated",
+            "config": {"monte_carlo": True, "samples": 1, "max_recursion": 4},
+            "objects": [{"type": "gltf", "path": glb}],
+            "animation": {"enabled": True, "fps": 3, "keyframes": move}}
+    frames, scenes = [], []
+
+    class Frames(run_mod.RenderSession):
+        def render_current_frame(self):
+            torch.cuda.synchronize()
+            bt.reset_launches()
+            wavefront.reset_graph_stats()
+            out = super().render_current_frame()
+            frames.append(dict(
+                out=out, scene=scenes[-1], graph=dict(wavefront.graph_stats),
+                k1=dict(bt.launches),
+                compile=self.stats.last_compile_seconds,
+                render=self.stats.last_render_seconds))
+            return out
+
+    to_torch = run_mod.to_torch
+
+    def recording(*args):
+        scenes.append(to_torch(*args))
+        return scenes[-1]
+
+    start = time.perf_counter()
+    wavefront._RENDERER_CACHE.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "animated.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        run_mod.to_torch = recording
+        try:
+            sess = Frames(WIDTH, HEIGHT, [path], animate=True, out_dir=tmp,
+                          device="cuda")
+            sess.init()
+            sess.run(save=False)
+        finally:
+            run_mod.to_torch = to_torch
+    n_programs, factors = _chunk_programs()
+    _check(len(frames) == 3, f"phase 14: the animation rendered {len(frames)} "
+           "frames, not 3")
+    _check(len({st for _, st in scenes}) == 1, "phase 14: the frames' "
+           "SceneStatic differs")
+    captures = sum(f["graph"]["captures"] for f in frames)
+    for i, f in enumerate(frames):
+        out, g = f["out"], f["graph"]
+        print(f"phase 14: (a) frame {i}: compile and upload "
+              f"{f['compile']:.3f} s, render() {f['render']:.3f} s "
+              f"({g['captures']} captures in {g['capture_seconds']:.3f} s, "
+              f"{g['replays']} replays), device_rays {out['device_rays']}, "
+              f"dropped {out['dropped_rays']}, K1 launches {f['k1']} ({smi})")
+        _check(out["dropped_rays"] == 0, f"phase 14: frame {i} dropped rays")
+        _check(all(n > 0 for n in f["k1"].values()),
+               f"phase 14: frame {i} launched no K1: {f['k1']}")
+        _check(i == 0 or g["captures"] == 0, f"phase 14: frame {i} "
+               f"captured: {g}")
+        sa_f, static_f = f["scene"]
+        want = _eager(lambda: render_fn(sa_f, static_f,
+                                        sess.scene.raytracing_config,
+                                        sess.engine))
+        diff = _differ(out, want)
+        _check(not diff, f"phase 14: frame {i} differs from the eager frame "
+               f"program on its scene in {diff}")
+        if i:
+            moved = [k for k in ("color", "object_id")
+                     if not np.array_equal(out[k], frames[0]["out"][k])]
+            _check(moved, f"phase 14: frame {i} equals frame 0: the motion "
+                   "did not reach the picture")
+            _check(f["k1"] == frames[1]["k1"], f"phase 14: frame {i} K1 "
+                   f"launches {f['k1']} vs frame 1's {frames[1]['k1']}")
+    _check(captures == n_programs, f"phase 14: {captures} captures over the "
+           f"session for {n_programs} queue factors {factors}")
+    _check(_launches_with_warm_up({"K1": frames[0]["k1"]},
+                                  {"K1": frames[1]["k1"]},
+                                  frames[0]["graph"]),
+           "phase 14: frame 0's K1 launches are not frame 1's and its "
+           "warm-up's")
+    print(f"phase 14: (a) 3 frames of an animated session: {captures} "
+          f"captures for queue factors {factors} over the session; each "
+          f"frame equal to the eager frame program on its scene in "
+          f"{', '.join(FRAME_KEYS)}; frames 1 and 2 moved against frame 0; "
+          f"{time.perf_counter() - start:.1f} s ({smi})")
+
+
+def frames_phase(smi, sa, static, cfg, paths):
+    """Phase 14: the renderer cache across frames.  ``paths`` maps a kernel
+    path's name to (engine, launch counters, pack budget) on the bench
+    scene (sa, static, cfg)."""
+    import gc
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig, render
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops import octet_trace as ot
+    from rustray_tpu_torch.render import wavefront
+    start = time.perf_counter()
+    animated_session(smi)
+
+    # (b) the same frame twice through render(), per kernel path
+    last = {}
+    budget = bt._VMEM_PACK_BUDGET
+    for name, (eng, counters, pack_budget) in paths.items():
+        bt._VMEM_PACK_BUDGET = pack_budget
+        try:
+            runs = []
+            for call in ("first", "second"):
+                ot.reset_counts()
+                secs, _, counts, out, g = bench_frame(
+                    f"phase 14: (b) {name}, {call} call", sa, static, cfg,
+                    eng, 1, counters)
+                runs.append((secs, counts, out, g, int(ot.fallback["rays"])))
+            ot.reset_counts()
+            e_secs, _, _, e_out, _ = _eager(lambda: bench_frame(
+                f"phase 14: (b) {name}, eager", sa, static, cfg, eng, 1,
+                counters))
+            e_fb = int(ot.fallback["rays"])
+        finally:
+            bt._VMEM_PACK_BUDGET = budget
+        (s1, c1, o1, g1, fb1), (s2, c2, o2, g2, fb2) = runs
+        _check(g2["captures"] == 0, f"phase 14: {name}: the second call "
+               f"captured: {g2}")
+        _check(g2["replays"] == g1["replays"], f"phase 14: {name}: replays "
+               f"{g2['replays']} vs the first call's {g1['replays']}")
+        _check(_launches_with_warm_up(c1, c2, g1), f"phase 14: {name}: "
+               f"launches {c2} against the first call's {c1}")
+        if "K3" in c2:
+            ran = all(c2["K3"].values())
+        else:
+            used, unused = ("K2", "K1") if pack_budget == 0 else ("K1", "K2")
+            ran = all(c2[used].values()) and not any(c2[unused].values())
+        _check(ran, f"phase 14: {name}: the second call launched {c2}")
+        for other, o in (("the first call's", o1), ("the eager frame", e_out)):
+            diff = _differ(o2, o)
+            _check(not diff, f"phase 14: {name}: the second call differs "
+                   f"from {other} in {diff}")
+        _check(fb1 == fb2 == e_fb, f"phase 14: {name}: fallback rays {fb1}, "
+               f"{fb2}, eager {e_fb}")
+        last[name] = o2
+        print(f"phase 14: (b) {name}: first call {s1:.3f} s "
+              f"({g1['captures']} captures in {g1['capture_seconds']:.3f} s, "
+              f"{g1['replays']} replays), second {s2:.3f} s (0 captures, "
+              f"{g2['replays']} replays), eager {e_secs:.3f} s; launches "
+              f"{c1} then {c2}; the second equal to the first and to the "
+              f"eager frame in {', '.join(FRAME_KEYS)} ({smi})")
+
+    # (c) a light's intensity changed in place in the same tensor
+    eng, counters, _ = paths["K1"]
+    intensity = sa.lights.intensity.clone()
+    sa.lights.intensity[0] *= 0.5
+    try:
+        _, _, _, out, g = bench_frame("phase 14: (c) light 0 at half "
+                                      "intensity", sa, static, cfg, eng, 1,
+                                      counters)
+        want = _eager(lambda: render(sa, static, cfg, eng))
+    finally:
+        sa.lights.intensity.copy_(intensity)
+    _check(g["captures"] == 0, f"phase 14: (c) the changed scene captured: "
+           f"{g}")
+    _check(_differ(out, last["K1"]), "phase 14: (c) the render after the "
+           "change equals the one before it")
+    diff = _differ(out, want)
+    _check(not diff, f"phase 14: (c) the render after the change differs "
+           f"from the eager render of the changed scene in {diff}")
+    print(f"phase 14: (c) light 0's intensity halved in place: the next "
+          f"render() (0 captures) differs from the last and equals the "
+          f"eager render of the changed scene")
+
+    # (d) two configurations alternating, A, B, A, on the glass mini-scene
+    sa_g, st_g, cfg_g = _mini_scene(True)
+    a = EngineConfig(chunk_pixels=2048, queue_factor=1.0, accel="on")
+    b = EngineConfig(chunk_pixels=1024, queue_factor=1.0, accel="on")
+    fresh = []
+    for e in (a, b):
+        wavefront._RENDERER_CACHE.clear()
+        fresh.append(render(sa_g, st_g, cfg_g, e))
+    wavefront._RENDERER_CACHE.clear()
+    seq = []
+    for tag, e, want in (("A", a, fresh[0]), ("B", b, fresh[1]),
+                         ("A", a, fresh[0])):
+        wavefront.reset_graph_stats()
+        out = render(sa_g, st_g, cfg_g, e)
+        g = dict(wavefront.graph_stats)
+        diff = _differ(out, want)
+        _check(not diff, f"phase 14: (d) render {len(seq) + 1} ({tag}) "
+               f"differs from a fresh render of its key in {diff}")
+        _check(out["dropped_rays"] == 0, f"phase 14: (d) {tag} dropped rays")
+        seq.append(f"{tag} {g['captures']} captures, {g['replays']} replays")
+        _check(len(seq) < 3 or g["captures"] == 0, f"phase 14: (d) the "
+               f"third render captured: {g}")
+    print(f"phase 14: (d) glass mini-scene at chunks 2048 (A) and 1024 (B), "
+          f"queue factor 1.0 raised: {'; '.join(seq)}; each equal to a "
+          f"fresh render of its key")
+
+    # (e) the memory the cache keeps between calls
+    render(sa, static, cfg, eng)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_reserved()
+    n_entries = len(wavefront._RENDERER_CACHE)
+    wavefront._RENDERER_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_reserved()
+    print(f"phase 14: (e) memory reserved after a render with "
+          f"{n_entries} cache entries {kept / 2**30:.3f} GiB; after "
+          f"_RENDERER_CACHE.clear() and empty_cache() {freed / 2**30:.3f} "
+          f"GiB ({smi})")
+    _check(freed < kept, "phase 14: (e) clearing the cache released no "
+           "memory")
+    print(f"phase 14: {time.perf_counter() - start:.1f} s in all ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1110,6 +1378,11 @@ def main() -> int:
 
     # ---- phase 13: the repo's tools on the card ----
     tools_phase(smi[0], sa, static, cfg)
+
+    # ---- phase 14: the renderer cache across frames ----
+    frames_phase(smi[0], sa, static, cfg, {
+        "K1": (engine, walk, budget), "octet": (octet, octet_counts, budget),
+        "K2 (forced)": (engine, walk, 0)})
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks: library_ms null

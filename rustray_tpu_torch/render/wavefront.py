@@ -14,7 +14,9 @@ A frame renders as the JAX package's device loop (every chunk per group
 of ``samples_per_dispatch`` sample cells, one fetch of the counts per
 group) or, with checkpoint/resume or a progressive preview, chunk by
 chunk.  Either runs the chunk program as CUDA graphs on the card when a
-kernel walks the mesh (:func:`make_chunk_renderer`), eagerly otherwise.
+kernel walks the mesh (:func:`make_chunk_renderer`), eagerly otherwise,
+and takes it from ``_RENDERER_CACHE``, so that a later frame of the same
+key (the next frame of an animation) replays the graphs captured before.
 Mesh traversal is the dense scan or a
 coherence-sorted cluster walk: on CUDA scene tensors (or under
 ``pallas_interpret``) a kernel, the block walk (ops/block_trace) or, with
@@ -36,7 +38,7 @@ from ..config import EngineConfig, RaytracingConfig
 from ..ops import rays as rays_ops
 from ..ops import shade as shade_ops
 from ..ops import texture as tex_ops
-from ..ops.block_trace import pack_cluster_tris
+from ..ops.block_trace import pack_cluster_tris, pack_is_gated
 from ..ops.cluster_trace import world_cluster_aabbs
 from ..ops.intersect import (INF, cross, device_const, dot, prepare_triangles,
                              safe_normalize)
@@ -450,6 +452,16 @@ _CAPTURE = True
 # synchronized start to a synchronized end)
 graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
 
+# The chunk and frame programs built so far, as the JAX package's
+# _RENDERER_CACHE holds its jitted ones: a render() whose key is cached
+# builds nothing.  On CUDA it also holds what the cached graphs read and
+# write: one graph memory pool per device (key ("pool", device)) and, per
+# scene key, the scene tensors the graphs read (("scene", ...), see
+# bind_scene).  Between calls that keeps alive, per device, the pool (the
+# largest capture's temporaries and every graph's outputs) and a copy of
+# each scene key's tensors; _RENDERER_CACHE.clear() releases all of it.
+_RENDERER_CACHE: Dict[tuple, object] = {}
+
 
 def reset_graph_stats() -> None:
     graph_stats.update(captures=0, capture_seconds=0.0, replays=0)
@@ -463,6 +475,99 @@ def captures(static, engine: EngineConfig, device) -> bool:
     device = torch.device(device)
     return (_CAPTURE and device.type == "cuda" and not engine.pallas_interpret
             and engine.use_pallas(static, device))
+
+
+def _leaves(tree):
+    """The tensors of a scene tree (dataclasses of tensors, tuples), in a
+    fixed order, with None where one is absent."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    else:
+        for x in tree:
+            yield from _leaves(x)
+
+
+def _clone_tree(tree):
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.clone()
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _clone_tree(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return type(tree)(_clone_tree(x) for x in tree)
+
+
+def _scene_key(static, engine: EngineConfig, scene) -> tuple:
+    """What the JAX package's jit keys on implicitly, and a captured
+    program bakes in: the device of the scene tensors ``scene`` = (sa,
+    prep, boxes), the shape and dtype of every one of them, whether the
+    chunk program runs as CUDA graphs (:func:`captures`) and the walk that
+    the slab pack selects (K1 or K2, ``pack_is_gated``)."""
+    sa, prep, _ = scene
+    dev = sa.verts.device
+    pack = prep.pallas_pack
+    return (dev, captures(static, engine, dev),
+            pack is not None and pack_is_gated(pack),
+            tuple(None if t is None else (tuple(t.shape), t.dtype)
+                  for t in _leaves(scene)))
+
+
+def _config_key(static, cfg: RaytracingConfig, engine: EngineConfig,
+                n_levels: int, scene) -> tuple:
+    """The JAX package's ``_config_key``, item for item, then
+    :func:`_scene_key` of ``scene`` = (sa, prep, boxes)."""
+    return (static, cfg.monte_carlo, cfg.samples, cfg.focal_length,
+            cfg.aperture_size, cfg.fog_density, tuple(cfg.fog_color),
+            cfg.max_recursion, cfg.gamma_correction,
+            engine.chunk_pixels, engine.queue_factor, engine.tri_tile,
+            engine.seed, n_levels, engine.accel, engine.accel_block,
+            engine.accel_gather, engine.accel_min_tris, engine.pallas,
+            engine.pallas_block, engine.pallas_interpret,
+            engine.pallas_algo) + _scene_key(static, engine, scene)
+
+
+def _refresh(bound, scene) -> None:
+    """Copy the tensors of ``scene`` into the buffers ``bound`` (none onto
+    itself)."""
+    for dst, src in zip(_leaves(bound), _leaves(scene)):
+        if dst is not None and dst is not src:
+            dst.copy_(src)
+
+
+def bind_scene(sa, prep, boxes, static, engine: EngineConfig):
+    """The scene tensors (sa, prep, boxes) that the chunk programs read,
+    holding this frame's values.  Where :func:`captures` says so, buffers
+    the cache owns, one set per scene key, which every cached graph of that
+    key reads: copies of the first frame's tensors, refreshed from each
+    later frame's by ``copy_`` (render() binds once per call, so a tensor
+    changed in place shows in the next render).  Elsewhere, the tensors
+    themselves."""
+    scene = (sa, prep, boxes)
+    if not captures(static, engine, sa.verts.device):
+        return scene
+    key = ("scene",) + _scene_key(static, engine, scene)
+    bound = _RENDERER_CACHE.get(key)
+    if bound is None:
+        bound = _RENDERER_CACHE[key] = _clone_tree(scene)
+    else:
+        _refresh(bound, scene)
+    return bound
+
+
+def _graph_pool(dev):
+    """The memory pool of every cached graph on ``dev``.  Sharing it is
+    safe: graphs replay one at a time on one stream, each replay's outputs
+    are copied out before the next replay, and a graph's inputs, scene
+    buffers and outputs stay allocated while it lives, so memory that one
+    capture freed and a later one took holds nothing live across replays
+    (in any order of keys, A, B, A included)."""
+    key = ("pool", dev)
+    if key not in _RENDERER_CACHE:
+        _RENDERER_CACHE[key] = torch.cuda.graph_pool_handle()
+    return _RENDERER_CACHE[key]
 
 
 def _capture_graph(fn, pool):
@@ -496,18 +601,20 @@ def _sync(dev) -> None:
 class _SampleGraph:
     """One sample of one chunk, captured: the primary rays, every level and
     the backward fold in a CUDA graph over static input buffers (pixels,
-    validity, the sample cell and its key words).  The graph reads the
-    scene tensors it was captured with, and replays over no others."""
+    validity, the sample cell and its key words) and the scene buffers
+    ``scene`` of :func:`bind_scene`, which its caller refreshes."""
 
     def __init__(self, static, cfg: RaytracingConfig, engine: EngineConfig,
-                 n_levels: int, pool):
+                 n_levels: int, pool, scene):
         self.args = (static, cfg, engine, n_levels)
         self.pool = pool
-        self.bound = None       # (sa, prep, boxes) of the capture
+        self.scene = scene
+        self.inputs = None
 
-    def _capture(self, sa, prep, boxes, ins):
+    def _capture(self, ins):
         from ..ops import octet_trace
         static, cfg, engine, n_levels = self.args
+        sa, prep, boxes = self.scene
         dev = ins[0].device
         self.inputs = tuple(x.clone() for x in ins)
 
@@ -518,6 +625,7 @@ class _SampleGraph:
         _sync(dev)
         t0 = time.perf_counter()
         octet_trace.rays_accumulator(dev)
+        self.rays = octet_trace.fallback["rays"]
         _warm_up(sample, dev)
         before = graphs.snapshot()
         self.outputs, self.replay = _capture_graph(sample, self.pool)
@@ -525,19 +633,21 @@ class _SampleGraph:
         graphs.restore(before)
         _sync(dev)
         self.delta = [a - b for a, b in zip(after, before)]
-        self.bound = (sa, prep, boxes)
         graph_stats["captures"] += 1
         graph_stats["capture_seconds"] += time.perf_counter() - t0
 
-    def run(self, sa, prep, boxes, px, py, valid, cells, keys, cell_valid):
+    def run(self, px, py, valid, cells, keys, cell_valid):
         """:func:`build_chunk_fn`'s outputs for cells (S, 2) and their keys
         (S, 2), int64 tensors on the chunk's device: one replay per valid
         cell, reduced in cell order."""
-        if self.bound is None:
-            self._capture(sa, prep, boxes, (px, py, valid, cells[0], keys[0]))
-        elif any(a is not b for a, b in zip(self.bound, (sa, prep, boxes))):
-            raise ValueError("a captured chunk program replays only over the "
-                             "scene tensors it was captured with")
+        from ..ops import octet_trace
+        if self.inputs is None:
+            self._capture((px, py, valid, cells[0], keys[0]))
+        elif octet_trace.fallback["rays"] is not self.rays:
+            # the graph adds the fallback's rays to the tensor it was
+            # captured with: carry the count over to it
+            self.rays.copy_(torch.as_tensor(octet_trace.fallback["rays"]))
+            octet_trace.fallback["rays"] = self.rays
         for buf, x in zip(self.inputs, (px, py, valid)):
             buf.copy_(x)
 
@@ -565,32 +675,63 @@ def _upload(a, dev):
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def make_chunk_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
-                        n_levels: int, pool=None):
-    """The chunk program of :func:`build_chunk_fn`, with its signature and
-    outputs, run as a CUDA graph where :func:`captures` says so: the first
-    call captures one sample of the chunk after an eager warm-up, and every
-    call replays it once per valid cell.  Elsewhere it is
-    :func:`build_chunk_fn`, run eagerly.
-
-    The graph's memory comes from ``pool`` (a ``graph_pool_handle`` that
-    graphs replayed one after another may share; None: a private pool).
-    Its outputs equal build_chunk_fn's bit for bit; its kernels run on
-    all-dead work where build_chunk_fn skips it (:mod:`..graphs`)."""
-    eager = build_chunk_fn(static, cfg, engine, n_levels)
-    graph = _SampleGraph(static, cfg, engine, n_levels, pool)
+def _graph_chunk_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
+                    n_levels: int, scene):
+    """The chunk program of :func:`build_chunk_fn` as a CUDA graph over the
+    bound scene buffers of ``scene``."""
+    bound = bind_scene(*scene, static, engine)
+    scene_key = _scene_key(static, engine, bound)
+    graph = _SampleGraph(static, cfg, engine, n_levels,
+                         _graph_pool(bound[0].verts.device), bound)
 
     def chunk_fn(sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
                  key):
+        if _scene_key(static, engine, (sa, prep, boxes)) != scene_key:
+            raise ValueError(
+                "these scene tensors differ in device, shape or dtype from "
+                "the ones the chunk program was made for (or the pack "
+                "selects another walk); make_chunk_renderer makes one for "
+                "them")
+        _refresh(bound, (sa, prep, boxes))
         dev = px.device
-        if not captures(static, engine, dev):
-            return eager(sa, prep, boxes, px, py, valid, cells, cell_idx,
-                         cell_valid, key)
         keys = [rng.fold_in(key, int(i)).numpy() for i in cell_idx]
-        return graph.run(sa, prep, boxes, px, py, valid, _upload(cells, dev),
+        return graph.run(px, py, valid, _upload(cells, dev),
                          _upload(keys, dev), [bool(v) for v in cell_valid])
 
     return chunk_fn
+
+
+def make_chunk_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
+                        n_levels: int, scene):
+    """Build (or fetch from the cache) the chunk program of
+    :func:`build_chunk_fn`, with its signature and outputs, for the scene
+    tensors ``scene`` = (sa, prep, boxes) of :func:`bind_scene`: their
+    device, shapes and dtypes are part of the key (:func:`_config_key`).
+
+    Where :func:`captures` says so, CUDA graphs: the first call captures
+    one sample of the chunk after an eager warm-up, and every call, in this
+    render() or a later one, replays it once per valid cell over the cached
+    scene buffers.  A call with other tensors of the same key copies them
+    in first; tensors of another key raise ValueError.  Elsewhere the
+    cached object is build_chunk_fn, run eagerly, as the JAX package's is
+    its jitted function.
+
+    Every cached graph of a device captures into one memory pool
+    (:func:`_graph_pool`).  Its outputs equal build_chunk_fn's bit for bit;
+    its kernels run on all-dead work where build_chunk_fn skips it
+    (:mod:`..graphs`)."""
+    key = _config_key(static, cfg, engine, n_levels, scene)
+    cached = _RENDERER_CACHE.get(key)
+    if cached is not None:
+        return cached
+    # the program keeps copies: a caller may change its configs in place
+    cfg, engine = dataclasses.replace(cfg), dataclasses.replace(engine)
+    if captures(static, engine, scene[0].verts.device):
+        fn = _graph_chunk_fn(static, cfg, engine, n_levels, scene)
+    else:
+        fn = build_chunk_fn(static, cfg, engine, n_levels)
+    _RENDERER_CACHE[key] = fn
+    return fn
 
 
 def _frame_fn(chunk_fn, static, chunk: int, n_chunks: int):
@@ -642,13 +783,21 @@ def build_frame_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
 
 
 def make_frame_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
-                        n_levels: int, chunk: int, n_chunks: int, pool=None):
-    """:func:`build_frame_fn` over :func:`make_chunk_renderer`: one CUDA
+                        n_levels: int, chunk: int, n_chunks: int, scene):
+    """Build (or fetch from the cache) :func:`build_frame_fn` over
+    :func:`make_chunk_renderer` for the scene tensors ``scene``: one CUDA
     graph of the chunk program (where :func:`captures` says so), replayed
-    for every chunk and cell.  Nothing is cached across calls: a graph
-    reads the tensors of the frame it was captured for."""
-    return _frame_fn(make_chunk_renderer(static, cfg, engine, n_levels, pool),
-                     static, chunk, n_chunks)
+    for every chunk and cell of every frame of the key.  The key is the
+    chunk program's and ("frame", chunk, n_chunks), as in the JAX
+    package."""
+    key = _config_key(static, cfg, engine, n_levels, scene) + (
+        "frame", chunk, n_chunks)
+    cached = _RENDERER_CACHE.get(key)
+    if cached is None:
+        cached = _RENDERER_CACHE[key] = _frame_fn(
+            make_chunk_renderer(static, cfg, engine, n_levels, scene),
+            static, chunk, n_chunks)
+    return cached
 
 
 def frame_levels(sa, cfg: RaytracingConfig) -> int:
@@ -707,9 +856,11 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
     the partial frame.  ``preview_path``: write the partial frame as a PNG
     after every ``preview_every``-th chunk and after the last one.  Any of
     the three renders chunk by chunk; without them the frame renders as
-    the JAX package's device loop (:func:`make_frame_renderer`).  The
-    frame's CUDA graphs (:func:`make_chunk_renderer`, one per queue factor)
-    live as long as the call: they read its scene tensors."""
+    the JAX package's device loop (:func:`make_frame_renderer`).  Both take
+    their chunk programs from ``_RENDERER_CACHE`` (one per queue factor):
+    a later call of the same key builds and captures nothing and replays
+    the CUDA graphs over its own scene tensors, copied into the cached
+    buffers once at its start (:func:`bind_scene`)."""
     engine = engine or EngineConfig()
     dev = sa.verts.device
     W, H = static.width, static.height
@@ -719,6 +870,9 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
     cells = sample_pattern(cfg.samples, engine.seed)
     key = rng.PRNGKey(engine.seed)
     prep, boxes = prepare_frame(sa, static, engine)
+    # what the chunk programs read: on the card, the cached graphs' buffers
+    # holding this frame's tensors
+    scene = bind_scene(sa, prep, boxes, static, engine)
 
     color = torch.zeros((n_pix, 3), device=dev)
     depth = torch.zeros((n_pix,), device=dev)
@@ -755,24 +909,16 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
 
     cell_idx = np.arange(cells.shape[0])
     cell_valid = np.ones(cells.shape[0], bool)
-    # the frame's chunk programs, one per queue factor; on CUDA their graphs
-    # share one memory pool, replayed one factor after another
-    pool = torch.cuda.graph_pool_handle() \
-        if captures(static, engine, dev) else None
-    renderers = {}
 
     def render_chunk(start, eng):
-        fn = renderers.get(eng.queue_factor)
-        if fn is None:
-            fn = renderers[eng.queue_factor] = make_chunk_renderer(
-                static, cfg, eng, n_levels, pool)
+        fn = make_chunk_renderer(static, cfg, eng, n_levels, scene)
         idx = torch.arange(start, start + chunk, device=dev)
         valid = idx < n_pix
         idx_c = torch.clamp(idx, max=n_pix - 1)
         px = (idx_c % W).to(torch.int32)
         py = (idx_c // W).to(torch.int32)
-        *out, drops, traced = fn(sa, prep, boxes, px, py, valid, cells,
-                                 cell_idx, cell_valid, rng.fold_in(key, start))
+        *out, drops, traced = fn(*scene, px, py, valid, cells, cell_idx,
+                                 cell_valid, rng.fold_in(key, start))
         return out, int(drops), int(traced)
 
     def raise_and_rerender(start, n_drop):
@@ -815,12 +961,12 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
         # frame in group order and the last group's object id wins
         n_chunks = -(-n_pix // chunk)
         frame = make_frame_renderer(static, cfg, engine, n_levels, chunk,
-                                    n_chunks, pool)
+                                    n_chunks, scene)
         per = max(1, int(engine.samples_per_dispatch))
         drops = np.zeros((n_chunks,), np.int64)
         for g0 in range(0, len(cells), per):
             g1 = min(g0 + per, len(cells))
-            c, dpt, nrm, oid, dr, tr = frame(sa, prep, boxes, cells[g0:g1],
+            c, dpt, nrm, oid, dr, tr = frame(*scene, cells[g0:g1],
                                              cell_idx[g0:g1],
                                              cell_valid[g0:g1], key)
             color += c

@@ -6,7 +6,10 @@ timestamped PNGs and prints the ffmpeg assembly hints.
 Port of ``rustray_tpu/run.py``.  The session renders on ``device``
 (default ``"cuda"``): the compiled scene goes to that device's tensors
 and post-processing computes there.  Without CUDA the default device
-raises; the CPU is used only when asked for (``device="cpu"``).
+raises; the CPU is used only when asked for (``device="cpu"``).  Every
+frame of an animation compiles its scene and calls ``render()``, whose
+renderer cache (``render/wavefront._RENDERER_CACHE``) hands the later
+frames the CUDA graphs that the first one captured.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ class Stats:  # src/run.rs:45-95
     completed: bool = False
     rays_per_sec: float = 0.0
     last_render_seconds: float = 0.0
+    # the last frame's scene compile and its upload to the device
+    last_compile_seconds: float = 0.0
 
     def reset(self):
         self.frame = 0
@@ -90,8 +95,10 @@ class RenderSession:
 
     def render_current_frame(self):
         self.scene.update()
+        t0 = time.time()
         sa, static = to_torch(*self.scene.compile(self.width, self.height),
                               self.device)
+        self.stats.last_compile_seconds = time.time() - t0
         cfg = self.scene.raytracing_config
         t0 = time.time()
         preview_path = None

@@ -11,8 +11,9 @@ warm-up), with the bench engine settings of ``chip_smoke.py`` (chunk
 32,768, blocks of 128, queue factor 1.0): ``block`` is the block walk
 (K1), ``octet`` the octet rounds (K3), ``ungated`` the block walk with the
 pack budget forced to 0 (K2).  ``render()`` takes its frame path, so the
-chunk program runs as CUDA graphs: each frame captures its own (a warm-up
-and a capture per queue factor) and replays them once per chunk and cell.
+chunk program runs as CUDA graphs: the unprofiled frame captures them (a
+warm-up and a capture per queue factor) and replays them once per chunk
+and cell; the profiled frame replays the cached graphs.
 It prints the captures, their seconds and the replays of each frame, and,
 from the profiler's trace, the profiled wall, the device's busy time (the
 union of its kernel, copy and memset intervals), the idle share (1 - busy /

@@ -313,6 +313,8 @@ def test_frame_path_replays_equal_eager(scene, algo):
     sa, static, cfg = scene
     eng = EngineConfig(accel="on", chunk_pixels=4096, pallas_algo=algo,
                        samples_per_dispatch=1)
+    # an earlier test may have cached this key's graphs
+    wavefront._RENDERER_CACHE.clear()
     wavefront.reset_graph_stats()
     got = render(sa, static, cfg, eng)
     assert wavefront.graph_stats["captures"] >= 1
@@ -344,3 +346,110 @@ def test_frame_path_two_scenes_one_static():
     sa, _, cfg = outs[0]
     _assert_same_frame(render(sa, static, cfg, eng, max_chunks=3),
                        frames[0])
+
+
+# ---- the renderer cache on the card (the CPU twins: test_torch_cache.py)
+
+def _fresh(fn):
+    """``fn()`` from an empty renderer cache, which it leaves empty."""
+    from rustray_tpu_torch.render import wavefront
+    wavefront._RENDERER_CACHE.clear()
+    try:
+        return fn()
+    finally:
+        wavefront._RENDERER_CACHE.clear()
+
+
+def _cache_scene(glass=False, texture=None):
+    sc = bench_scene(grid=2, lat=10, lon=14, width=W, height=H)
+    if glass:
+        for m in sc.materials:
+            m.reflectivity, m.alpha, m.refraction_index = 0.5, 0.5, 1.5
+    if texture is not None:
+        from rustray_tpu_torch.scene.material import TextureType
+        sc.materials[0].set_texture(TextureType.Base, texture)
+    sa, static = to_torch(*sc.compile(), "cuda")
+    return sa, static, sc.raytracing_config
+
+
+def _counted_render(sa, static, cfg, eng):
+    """render() with the launch and graph counts reset just before;
+    returns (output, graph counts, K1 launches, K3 launches)."""
+    from rustray_tpu_torch.render import wavefront
+    bt.reset_launches()
+    ot.reset_counts()
+    wavefront.reset_graph_stats()
+    out = render(sa, static, cfg, eng)
+    return (out, dict(wavefront.graph_stats), dict(bt.launches),
+            dict(ot.launches))
+
+
+@pytest.mark.parametrize("algo", ["block", "octet"])
+def test_second_render_makes_no_capture(algo):
+    """The second render() of a key replays the first one's graphs: no
+    capture, the same replays, the launches of the first less its
+    warm-up (which launches what one replay does), the same frame, which
+    is the eager one."""
+    sa, static, cfg = _cache_scene()
+    eng = EngineConfig(accel="on", chunk_pixels=2048, pallas_algo=algo)
+    from rustray_tpu_torch.render import wavefront
+    wavefront._RENDERER_CACHE.clear()
+    first, g1, k1, k3 = _counted_render(sa, static, cfg, eng)
+    second, g2, k1b, k3b = _counted_render(sa, static, cfg, eng)
+    assert g1["captures"] == 1 and g2["captures"] == 0
+    r = g2["replays"]
+    assert r == g1["replays"]
+    for once, again in ((k1, k1b), (k3, k3b)):
+        assert all(once[m] * r == again[m] * (r + 1) for m in once)
+    assert any(k1b.values())
+    _assert_same_frame(second, first)
+    _assert_same_frame(second, _eager(lambda: render(sa, static, cfg, eng)))
+
+
+def test_tensor_changed_in_place_shows_on_the_card():
+    from rustray_tpu_torch.render import wavefront
+    sa, static, cfg = _cache_scene()
+    eng = EngineConfig(accel="on", chunk_pixels=2048)
+    wavefront._RENDERER_CACHE.clear()
+    before = render(sa, static, cfg, eng)
+    sa.lights.intensity.mul_(0.25)
+    changed, g, _, _ = _counted_render(sa, static, cfg, eng)
+    assert g["captures"] == 0
+    assert not np.array_equal(changed["color"], before["color"])
+    _assert_same_frame(changed, _eager(lambda: render(sa, static, cfg, eng)))
+
+
+def test_changed_shape_captures_anew_on_the_card():
+    from rustray_tpu_torch.models.procedural import checkerboard_texture
+    from rustray_tpu_torch.render import wavefront
+    sa, static, cfg = _cache_scene()
+    sa2, static2, _ = _cache_scene(texture=checkerboard_texture(64, 4))
+    assert static2 == static and sa2.tex_texels.shape != sa.tex_texels.shape
+    eng = EngineConfig(accel="on", chunk_pixels=2048)
+    wavefront._RENDERER_CACHE.clear()
+    first, g1, _, _ = _counted_render(sa, static, cfg, eng)
+    other, g2, _, _ = _counted_render(sa2, static, cfg, eng)
+    again, g3, _, _ = _counted_render(sa, static, cfg, eng)
+    assert g1["captures"] >= 1 and g2["captures"] >= 1
+    assert g3["captures"] == 0
+    _assert_same_frame(again, first)
+    assert not np.array_equal(other["color"], first["color"])
+    _assert_same_frame(other, _fresh(lambda: render(sa2, static, cfg, eng)))
+
+
+def test_alternating_keys_share_the_pool():
+    """The glass scene (its queue factor raised) at two chunk sizes, A, B,
+    A, in one pool: each render equals a fresh render of its key, and the
+    third captures nothing."""
+    sa, static, cfg = _cache_scene(glass=True)
+    a = EngineConfig(accel="on", chunk_pixels=2048, queue_factor=1.0)
+    b = EngineConfig(accel="on", chunk_pixels=1024, queue_factor=1.0)
+    want = [_fresh(lambda: render(sa, static, cfg, e)) for e in (a, b)]
+    from rustray_tpu_torch.render import wavefront
+    wavefront._RENDERER_CACHE.clear()
+    runs = [_counted_render(sa, static, cfg, e) for e in (a, b, a)]
+    for (out, _, _, _), ref in zip(runs, want + want[:1]):
+        _assert_same_frame(out, ref)
+    assert runs[0][1]["captures"] >= 2 and runs[1][1]["captures"] >= 2
+    assert runs[2][1]["captures"] == 0
+    assert runs[0][0]["dropped_rays"] == 0

@@ -286,6 +286,8 @@ def _stand_in(monkeypatch):
     monkeypatch.setattr(wavefront, "captures", lambda *a: True)
     monkeypatch.setattr(wavefront, "_capture_graph", _eager_graph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    # no cached program of another test's stand-in
+    wavefront._RENDERER_CACHE.clear()
     wavefront.reset_graph_stats()
     _reset()
 
@@ -309,17 +311,22 @@ def test_replay_machinery_equals_eager_frame(monkeypatch, mc_scene):
     assert replays == 2 * 2                      # 2 chunks x 2 cells
     assert sum(bt.selected.values()) * replays == \
         unconditional * (replays + 1)
-    # a captured chunk program replays over no other scene tensors
-    fn = wavefront.make_chunk_renderer(static, cfg, eng,
-                                       wavefront.frame_levels(sa, cfg))
+    # the cached chunk program replays over other scene tensors of its key
+    # (copied into its buffers) and refuses tensors of another shape
     prep, boxes = wavefront.prepare_frame(sa, static, eng)
-    px = torch.arange(64, dtype=torch.int32)
-    args = (px, px * 0, px >= 0, np.zeros((1, 2), np.int64), [0], [True],
-            rng.PRNGKey(0))
-    fn(sa, prep, boxes, *args)
+    fn = wavefront.make_chunk_renderer(static, cfg, eng,
+                                       wavefront.frame_levels(sa, cfg),
+                                       (sa, prep, boxes))
+    pix = torch.arange(CHUNK["chunk_pixels"], dtype=torch.int32)
+    args = (pix % 64, pix // 64, pix >= 0, np.zeros((1, 2), np.int64), [0],
+            [True], rng.PRNGKey(0))
+    want = [x.clone() for x in fn(sa, prep, boxes, *args)]
     prep2, boxes2 = wavefront.prepare_frame(sa, static, eng)
-    with pytest.raises(ValueError, match="captured with"):
-        fn(sa, prep2, boxes2, *args)
+    for got, w in zip(fn(sa, prep2, boxes2, *args), want):
+        assert torch.equal(got, w)
+    other = (boxes2[0][:-1], boxes2[1][:-1])
+    with pytest.raises(ValueError, match="make_chunk_renderer"):
+        fn(sa, prep2, other, *args)
 
 
 def test_replay_machinery_raises_the_queue(monkeypatch, capsys):
