@@ -4,11 +4,14 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints its result; any failure raises and exits non-zero):
-  1. the card: nvidia-smi name and power limit, torch's device name; TF32
-     off for matmuls and convolutions;
+  1. the card: nvidia-smi name and power limit, torch's device name, the
+     CUDA runtime and driver versions (csrc/graph_cond.cu built first to
+     ask them) and torch's allocator calls that route an IF node body's
+     allocations to its graph's pool; TF32 off for matmuls and
+     convolutions;
   2. build: nvcc builds every kernel from the checkout's sources, one
      process per source, all at once (csrc/block_trace.cu, octet_trace.cu,
-     octet_bench.cu), with their ptxas lines;
+     octet_bench.cu, graph_cond.cu), with their ptxas lines;
   3. kernels vs twins on the full bench scene (data/bench, 249,698
      triangles in 2,593 clusters), on the primary rays of one 32768-pixel
      chunk and their level-1 shadow rays, timed: the block walk gated (K1)
@@ -22,8 +25,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
      engine settings, counting kernel launches, drops and device rays;
      render() takes its frame path, so the chunk program runs as CUDA
      graphs (one capture per queue factor, one replay per chunk and cell;
-     a replay adds its capture's launches to the counts), as in every
-     render() below without a checkpoint, preview or max_chunks;
+     the gates on all-dead work are IF nodes, and a replay's launches are
+     added at the group's fetch from the device's run counts of the
+     nodes), as in every render() below without a checkpoint, preview or
+     max_chunks;
   5. a 160x90 frame through the kernel against the JAX package's render of
      it (tests/data/jax_bench_160x90.npz, written on the CPU by
      tests/data/make_jax_bench_reference.py), and a 320x180 frame through
@@ -61,10 +66,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
      chunk, with its host syncs): the bench frames of phases 4 (K1) and 6
      (K3 with its K1 fallback) rendered again eagerly, equal bit for bit in
      every AOV, the image, device and dropped rays and the fallback's rays,
-     with both frames' seconds, the captures, their seconds and the
-     replays, and both launch counts (the graphs launch their kernels on
-     dead levels, slices and fallbacks too); the K1 frame path under
-     torch.profiler (its device idle share); a glass variant of the tests'
+     with both frames' seconds, the captures, their seconds, their IF
+     nodes and the replays; then each frame replayed (no capture): equal
+     to the eager frame, its launches equal to the eager program's in
+     every counter and in the fallback's calls; a glass variant of the tests'
      bench mini-scene whose queue factor 1.0 is raised twice over three
      chunks, and then the plain mini-scene sharing its static, back to
      back, each equal to its own eager frame;
@@ -84,17 +89,29 @@ Phases (each prints its result; any failure raises and exits non-zero):
      JSON in a temporary directory: the bench GLB, one ball rising, fps 3,
      keyframes at 0 and 1000 ms): one capture per queue factor for the
      whole session, each frame equal bit for bit to the eager frame
-     program on its scene, 0 dropped rays, frames 1 and 2 moved against
+     program on its scene (and a frame that captures nothing launching
+     K1 as often as it), 0 dropped rays, frames 1 and 2 moved against
      frame 0, with each frame's compile, render() and capture seconds;
      (b) the 1-spp bench frame twice through render() on K1, the octet
      path (K3 with its K1 fallback) and K2 (budget forced to 0): the
-     second call captures nothing, replays and launches as the first
-     (less its warm-up) and equals it and the eager frame; (c) a light's
+     second call captures nothing, replays as the first, launches what the
+     eager frame launches and equals it and the eager frame; (c) a light's
      intensity halved in place in the same tensor: the next render() sees
      it and equals the eager render; (d) the glass mini-scene at two chunk
      sizes, A, B, A, each equal to a fresh render of its key, the third
      with no capture; (e) the memory reserved after a render and after
-     _RENDERER_CACHE.clear() and empty_cache().
+     _RENDERER_CACHE.clear() and empty_cache();
+ 15. conditional graph nodes (csrc/graph_cond.cu): two gates nested in a
+     captured graph over 32,768 rays, replayed with both masks dead, the
+     outer dead and the inner live, the outer partly live and the inner
+     dead, both partly live and both live: each replay equal to the eager
+     gates, with the nodes' run counts; the gate on a dead mask timed in a
+     graph of 64 and eagerly;
+ 16. the 1-spp bench frame through K1 and through the octet path, each
+     replayed (the graphs its first frame captured) and eagerly under
+     torch.profiler, each in a process of its own
+     (rustray_tpu_torch.tools.profile_frame): device busy time, idle share
+     and the port's kernels' calls in each trace side by side.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -126,7 +143,13 @@ TPU_K1 = "rustray_tpu/ops/block_trace.py:279"
 TPU_K2 = "rustray_tpu/ops/block_trace.py:434"
 TPU_K3 = "rustray_tpu/ops/octet_trace.py:109"
 TPU_K4 = "tools/octet_kernel_bench.py:29"
-KERNEL_SOURCES = ("block_trace", "octet_trace", "octet_bench")
+# the sites of the JAX package's device-side skips (jax.lax.cond) that the
+# port's conditional graph nodes (csrc/graph_cond.cu::set_if) replace
+TPU_CONDS = ("rustray_tpu/render/wavefront.py:383",
+             "rustray_tpu/ops/traverse.py:331",
+             "rustray_tpu/ops/octet_trace.py:306",
+             "rustray_tpu/ops/octet_trace.py:361")
+KERNEL_SOURCES = ("block_trace", "octet_trace", "octet_bench", "graph_cond")
 
 
 def _check(cond, msg):
@@ -809,10 +832,8 @@ def frame_path(smi, sa, static, cfg, samples, frames):
     6's (seconds, counts, output, graph counts, fallback rays))."""
     import torch
     from rustray_tpu_torch import EngineConfig, render
-    from rustray_tpu_torch.build import BUILD_DIR
     from rustray_tpu_torch.ops import octet_trace as ot
     from rustray_tpu_torch.render import wavefront
-    from rustray_tpu_torch.tools.profile_frame import profile
     start = time.perf_counter()
     for name, (eng, counters, graph) in frames.items():
         secs, counts, out, g, fb = graph
@@ -820,7 +841,7 @@ def frame_path(smi, sa, static, cfg, samples, frames):
         e_secs, _, e_counts, e_out, e_g = _eager(lambda: bench_frame(
             f"phase 12: eager {name}", sa, static, cfg, eng, samples,
             counters))
-        e_fb = int(ot.fallback["rays"])
+        e_fb, e_calls = int(ot.fallback["rays"]), ot.fallback["calls"]
         _check(e_g["captures"] == 0, f"phase 12: the eager {name} frame "
                f"captured: {e_g}")
         diff = _differ(out, e_out)
@@ -828,37 +849,43 @@ def frame_path(smi, sa, static, cfg, samples, frames):
                f"the eager chunk program in {diff}")
         _check(fb == e_fb, f"phase 12: {name}: fallback rays {fb} vs eager "
                f"{e_fb}")
-        # a graph launches its kernels on dead levels, slices and fallbacks
-        # too, where the eager program asks the device and skips them
-        for k, per_mode in counts.items():
+        # the same frame again, replaying the graphs captured in phase 4 or
+        # 6 (no capture, no warm-up): its IF nodes launch what eager does
+        ot.reset_counts()
+        w_secs, _, w_counts, w_out, w_g = bench_frame(
+            f"phase 12: replayed {name}", sa, static, cfg, eng, samples,
+            counters)
+        w_fb, w_calls = int(ot.fallback["rays"]), ot.fallback["calls"]
+        _check(w_g["captures"] == 0, f"phase 12: {name}: the replayed frame "
+               f"captured: {w_g}")
+        diff = _differ(w_out, e_out)
+        _check(not diff, f"phase 12: {name}: the replayed frame differs "
+               f"from the eager chunk program in {diff}")
+        _check(w_fb == e_fb, f"phase 12: {name}: replayed fallback rays "
+               f"{w_fb} vs eager {e_fb}")
+        for k, per_mode in w_counts.items():
+            if k == "set_if":
+                continue
             for m, n in per_mode.items():
-                _check(n >= e_counts[k][m], f"phase 12: {name}: {k}[{m}] "
-                       f"launched {n} times in the frame path, fewer than "
-                       f"the eager {e_counts[k][m]}")
+                _check(n == e_counts[k][m], f"phase 12: {name}: {k}[{m}] "
+                       f"launched {n} times in the replayed frame, "
+                       f"{e_counts[k][m]} in the eager chunk program")
+        _check(w_calls == e_calls, f"phase 12: {name}: fallback calls "
+               f"{w_calls} replayed vs {e_calls} eager")
+        _check(w_counts["set_if"]["set_if"] > 0, f"phase 12: {name}: the "
+               "replayed frame reached no IF node")
+        nodes = g["if_nodes"]
         print(f"phase 12: {name}: frame path equal to the eager chunk "
               f"program bit for bit in {', '.join(FRAME_KEYS)} "
               f"({out['device_rays'] / samples:.1f} rays per sample, "
               f"{out['dropped_rays']} dropped, fallback rays {fb}); "
               f"frame path {secs:.3f} s ({g['captures']} captures in "
-              f"{g['capture_seconds']:.3f} s, {g['replays']} replays) "
-              f"against eager {e_secs:.3f} s; launches per frame "
-              f"{counts} against eager {e_counts} ({smi})")
-
-    # the frame path's device idle share, under the profiler
-    cfg.samples = samples
-    engine = frames["K1"][0]
-    out, p = profile(lambda: render(sa, static, cfg, engine),
-                     os.path.join(BUILD_DIR, "trace_frame_k1.json"))
-    _check(not _differ(out, frames["K1"][2][2]), "phase 12: the profiled "
-           "frame differs from phase 4's")
-    print(f"phase 12: K1 frame path under the profiler: {p['wall']:.3f} s, "
-          f"device busy {p['busy']:.3f} s, idle share {p['idle']:.3f}; "
-          f"{p['graph']['captures']} captures in "
-          f"{p['graph']['capture_seconds']:.3f} s, {p['graph']['replays']} "
-          f"replays")
-    for k, s, n in p["ranked"][:8]:
-        print(f"phase 12:   {s * 1e3:9.1f} ms {n:7d} calls "
-              f"{s / p['busy']:7.2%}  {k[:80]}")
+              f"{g['capture_seconds']:.3f} s, {g['replays']} replays, "
+              f"{sum(nodes.values())} IF nodes {nodes}), replayed "
+              f"{w_secs:.3f} s, eager {e_secs:.3f} s ({smi})")
+        print(f"phase 12: {name}: launches per replayed frame {w_counts}, "
+              f"fallback calls {w_calls}, equal to the eager chunk "
+              f"program's {e_counts}, fallback calls {e_calls}")
 
     # a scene that raises its queue factor, over 3 chunks, both paths
     glass = EngineConfig(chunk_pixels=2048, queue_factor=1.0, accel="on")
@@ -939,16 +966,16 @@ def _chunk_programs():
 
 
 def _launches_with_warm_up(first, second, g1):
-    """Whether ``first``'s launch counts are ``second``'s plus the eager
-    warm-up before each of ``first``'s captures: with one capture, a
-    warm-up launches what one replay does."""
-    r = g1["replays"]
+    """Whether the kernel launch counts ``first`` of a render whose graph
+    counts are ``g1`` are ``second``'s, the same frame's without a
+    capture (a replayed or eager frame): equal when ``g1`` counts no
+    capture, else no fewer in any counter (the eager warm-up before a
+    capture runs every branch).  set_if, which only a replay launches, is
+    not compared."""
+    kernels = [(k, m) for k in first if k != "set_if" for m in first[k]]
     if g1["captures"] == 0:
-        return first == second
-    if g1["captures"] == 1:
-        return all(first[k][m] * r == second[k][m] * (r + 1)
-                   for k in first for m in first[k])
-    return all(first[k][m] >= second[k][m] for k in first for m in first[k])
+        return all(first[k][m] == second[k][m] for k, m in kernels)
+    return all(first[k][m] >= second[k][m] for k, m in kernels)
 
 
 def animated_session(smi):
@@ -1026,26 +1053,25 @@ def animated_session(smi):
         _check(i == 0 or g["captures"] == 0, f"phase 14: frame {i} "
                f"captured: {g}")
         sa_f, static_f = f["scene"]
+        bt.reset_launches()
         want = _eager(lambda: render_fn(sa_f, static_f,
                                         sess.scene.raytracing_config,
                                         sess.engine))
+        e_k1 = dict(bt.launches)
         diff = _differ(out, want)
         _check(not diff, f"phase 14: frame {i} differs from the eager frame "
                f"program on its scene in {diff}")
+        # a frame that captures launches its warm-up's kernels too
+        _check(_launches_with_warm_up({"K1": f["k1"]}, {"K1": e_k1}, g),
+               f"phase 14: frame {i} K1 launches {f['k1']} against the "
+               f"eager frame's {e_k1}")
         if i:
             moved = [k for k in ("color", "object_id")
                      if not np.array_equal(out[k], frames[0]["out"][k])]
             _check(moved, f"phase 14: frame {i} equals frame 0: the motion "
                    "did not reach the picture")
-            _check(f["k1"] == frames[1]["k1"], f"phase 14: frame {i} K1 "
-                   f"launches {f['k1']} vs frame 1's {frames[1]['k1']}")
     _check(captures == n_programs, f"phase 14: {captures} captures over the "
            f"session for {n_programs} queue factors {factors}")
-    _check(_launches_with_warm_up({"K1": frames[0]["k1"]},
-                                  {"K1": frames[1]["k1"]},
-                                  frames[0]["graph"]),
-           "phase 14: frame 0's K1 launches are not frame 1's and its "
-           "warm-up's")
     print(f"phase 14: (a) 3 frames of an animated session: {captures} "
           f"captures for queue factors {factors} over the session; each "
           f"frame equal to the eager frame program on its scene in "
@@ -1081,7 +1107,7 @@ def frames_phase(smi, sa, static, cfg, paths):
                     eng, 1, counters)
                 runs.append((secs, counts, out, g, int(ot.fallback["rays"])))
             ot.reset_counts()
-            e_secs, _, _, e_out, _ = _eager(lambda: bench_frame(
+            e_secs, _, e_counts, e_out, _ = _eager(lambda: bench_frame(
                 f"phase 14: (b) {name}, eager", sa, static, cfg, eng, 1,
                 counters))
             e_fb = int(ot.fallback["rays"])
@@ -1094,6 +1120,9 @@ def frames_phase(smi, sa, static, cfg, paths):
                f"{g2['replays']} vs the first call's {g1['replays']}")
         _check(_launches_with_warm_up(c1, c2, g1), f"phase 14: {name}: "
                f"launches {c2} against the first call's {c1}")
+        _check(_launches_with_warm_up(c2, e_counts, g2), f"phase 14: "
+               f"{name}: the second call launched {c2}, the eager frame "
+               f"{e_counts}")
         if "K3" in c2:
             ran = all(c2["K3"].values())
         else:
@@ -1111,8 +1140,9 @@ def frames_phase(smi, sa, static, cfg, paths):
               f"({g1['captures']} captures in {g1['capture_seconds']:.3f} s, "
               f"{g1['replays']} replays), second {s2:.3f} s (0 captures, "
               f"{g2['replays']} replays), eager {e_secs:.3f} s; launches "
-              f"{c1} then {c2}; the second equal to the first and to the "
-              f"eager frame in {', '.join(FRAME_KEYS)} ({smi})")
+              f"{c1} then {c2}, eager {e_counts}; the second equal to the "
+              f"first and to the eager frame in {', '.join(FRAME_KEYS)} "
+              f"({smi})")
 
     # (c) a light's intensity changed in place in the same tensor
     eng, counters, _ = paths["K1"]
@@ -1180,6 +1210,138 @@ def frames_phase(smi, sa, static, cfg, paths):
     print(f"phase 14: {time.perf_counter() - start:.1f} s in all ({smi})")
 
 
+def conditional_nodes(smi):
+    """Phase 15: IF nodes nested two deep (csrc/graph_cond.cu) in a small
+    captured graph over one chunk's 32,768 rays, replayed under every mask
+    pattern against the eager gates (``graphs.cond`` outside a capture,
+    ``bool(mask.any())``), with their run counts; then the gate timed on
+    a dead 32,768-ray mask, in a graph of 64 gates and eagerly.  Returns
+    the kernel table's row of set_if."""
+    import torch
+    from rustray_tpu_torch import graphs
+    from rustray_tpu_torch.render import wavefront
+    dev = torch.device("cuda")
+    start = time.perf_counter()
+    gen = torch.Generator().manual_seed(15)
+    x = torch.rand(CHUNK, generator=gen).to(dev)
+    some = torch.rand(CHUNK, generator=gen) < 0.01
+    masks = [torch.zeros(CHUNK, dtype=torch.bool, device=dev)
+             for _ in range(2)]
+
+    def program():
+        def inner():
+            return (x * 3.0 + 1.0,)
+
+        def outer():
+            y, = graphs.cond(masks[1], inner, lambda: (torch.zeros_like(x),),
+                             "inner")
+            return x + y, torch.where(masks[1], y, -1.0)
+
+        return graphs.cond(masks[0], outer, lambda: (
+            torch.zeros_like(x), torch.full_like(x, 7.0)), "outer")
+
+    pool = torch.cuda.graph_pool_handle()
+    census = wavefront._warm_up(program, dev)
+    _check((census.gates, census.max_depth) == (2, 2),
+           f"phase 15: the warm-up passed {census.gates} gates, "
+           f"{census.max_depth} deep")
+    graphs.reset_launches()
+    with graphs.recording(dev, census) as rec:
+        out, replay = wavefront._capture_graph(program, pool)
+    _check(rec.sites == ["outer", "inner"], f"phase 15: nodes {rec.sites}")
+    values = {"dead": torch.zeros(CHUNK, dtype=torch.bool),
+              "partly live": some, "live": torch.ones(CHUNK,
+                                                      dtype=torch.bool)}
+    err = 0.0
+    for pattern in (("dead", "dead"), ("dead", "live"),
+                    ("partly live", "dead"), ("partly live", "partly live"),
+                    ("live", "live")):
+        for m, v in zip(masks, pattern):
+            m.copy_(values[v])
+        want = [t.clone() for t in program()]
+        rec.runs.zero_()
+        replay()
+        torch.cuda.synchronize()
+        for o, w in zip(out, want):
+            err = max(err, float((o - w).abs().max()))
+            _check(torch.equal(o, w), f"phase 15: {pattern}: the replay "
+                   "differs from the eager gates")
+        outer_ran = pattern[0] != "dead"
+        runs = rec.runs.tolist()
+        _check(runs == [int(outer_ran), int(outer_ran and pattern[1] !=
+                                            "dead")],
+               f"phase 15: {pattern}: runs {runs}")
+        print(f"phase 15: masks {pattern[0]} / {pattern[1]}: the replay "
+              f"equals the eager gates, runs {runs}")
+
+    # the gate on a dead mask: 64 in one graph, and eagerly
+    n_gates = 64
+    dead = torch.zeros(CHUNK, dtype=torch.bool, device=dev)
+
+    def gates():
+        return [graphs.cond(dead, lambda: (x + 1.0,),
+                            lambda: (torch.zeros_like(x),), "timed")[0]
+                for _ in range(n_gates)]
+
+    census = wavefront._warm_up(gates, dev)
+    with graphs.recording(dev, census) as timed:
+        _, replay64 = wavefront._capture_graph(gates, pool)
+    ms = _cuda_ms(replay64, 20) / n_gates
+    plain_ms = _cuda_ms(lambda: [graphs.cond(dead, lambda: (x + 1.0,),
+                                             lambda: (torch.zeros_like(x),),
+                                             "timed")
+                                 for _ in range(n_gates)], 5) / n_gates
+    _check(timed.runs.sum().item() == 0, "phase 15: a dead gate ran")
+    # per gate: the mask read once, the predicate written and read, runs
+    # read and written
+    bound_ms = (CHUNK + 2 + 16) / 3.35e12 * 1e3
+    print(f"phase 15: gate on a dead {CHUNK}-ray mask (mask.any(), set_if, "
+          f"the IF node): {ms * 1e3:.2f} us per gate in a graph of "
+          f"{n_gates}, eagerly (bool(mask.any()), a host sync) "
+          f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e6:.2f} ns "
+          f"(bytes); phase 15 in {time.perf_counter() - start:.1f} s "
+          f"({smi})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes",
+                tests=n_gates)
+
+
+def profiled_frames(smi):
+    """Phase 16: the 1-spp bench frame replayed (the graphs its first
+    frame captured) and eagerly, each under torch.profiler in a process
+    of its own (``tools/profile_frame.py``), through K1 and the octet
+    path: device busy time, idle share and the port's kernels' calls side
+    by side."""
+    import re
+    start = time.perf_counter()
+    ours = ("walk_units_kernel", "round0_kernel")
+    for algo in ("block", "octet"):
+        seen = {}
+        for mode in ("replayed", "eager"):
+            args = [sys.executable, "-m", "rustray_tpu_torch.tools."
+                    "profile_frame", algo, "1"] + ["eager"] * (
+                        mode == "eager")
+            run = subprocess.run(args, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300)
+            _check(run.returncode == 0, f"phase 16: {' '.join(args[2:])} "
+                   f"failed:\n{run.stdout[-2000:]}{run.stderr[-2000:]}")
+            head = next(line for line in run.stdout.splitlines()
+                        if line.startswith(algo))
+            m = re.search(r"device busy ([0-9.]+) s, idle share ([0-9.]+)",
+                          head)
+            calls = {k: int(line.split()[2]) for line in
+                     run.stdout.splitlines() for k in ours if k in line}
+            seen[mode] = calls
+            print(f"phase 16: {algo} {mode}: device busy {m.group(1)} s, "
+                  f"idle share {m.group(2)}; the port's kernels' calls in "
+                  f"the trace {calls} ({head.strip()}) ({smi})")
+        complete = seen["replayed"] == seen["eager"]
+        print(f"phase 16: {algo}: the traces hold "
+              f"{'the same' if complete else 'DIFFERENT'} numbers of the "
+              "port's kernels (a trace that lost device events differs)")
+    print(f"phase 16 in {time.perf_counter() - start:.1f} s ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1211,6 +1373,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"phase 1: device {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
+    from rustray_tpu_torch import graphs
+    runtime, driver = graphs.versions()
+    pools = {f: hasattr(torch._C, f) for f in (
+        "_cuda_beginAllocateCurrentThreadToPool", "_cuda_endAllocateToPool",
+        "_cuda_releasePool")}
+    print(f"phase 1: cudaRuntimeGetVersion {runtime}, cudaDriverGetVersion "
+          f"{driver}; torch allocator pool routing {pools}")
+    _check(all(pools.values()), "phase 1: torch lacks the allocator calls "
+           "that route an IF node body's allocations to its graph's pool")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1253,7 +1424,8 @@ def main() -> int:
 
     samples = int(os.environ.get("SMOKE_SAMPLES", 2))
     walk = {"K1": (bt.launches, bt.reset_launches),
-            "K2": (bt.ungated_launches, bt.reset_launches)}
+            "K2": (bt.ungated_launches, bt.reset_launches),
+            "set_if": (graphs.launches, graphs.reset_launches)}
 
     # ---- phase 4: the main path ----
     secs4, per4, c4, out4, g4 = bench_frame("phase 4", sa, static, cfg,
@@ -1384,8 +1556,15 @@ def main() -> int:
         "K1": (engine, walk, budget), "octet": (octet, octet_counts, budget),
         "K2 (forced)": (engine, walk, 0)})
 
+    # ---- phase 15: conditional graph nodes ----
+    cond_row = conditional_nodes(smi[0])
+
+    # ---- phase 16: replayed and eager frames under the profiler ----
+    profiled_frames(smi[0])
+
     def entry(name, source, replaces, launches, row):
-        # no one PyTorch call computes any of these walks: library_ms null
+        # no one PyTorch call computes any of these walks, and torch has no
+        # call that makes a conditional graph node: library_ms null
         return dict(name=name, route="cuda",
                     source=f"rustray_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
@@ -1403,7 +1582,9 @@ def main() -> int:
         + [entry(f"octet_round[slots={k}]", "octet_trace.cu", TPU_K3,
                  c6["K3"][k], round_rows[k]) for k in (1, 4)]
         + [entry(f"octet_bench[{v}]", "octet_bench.cu", TPU_K4,
-                 k4_launches[v], k4_rows[v]) for v in okb.VARIANTS])
+                 k4_launches[v], k4_rows[v]) for v in okb.VARIANTS]
+        + [entry("set_if", "graph_cond.cu", ", ".join(TPU_CONDS),
+                 c4["set_if"]["set_if"], cond_row)])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,9 +38,11 @@ wins exact-t ties.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
+from .. import graphs
 from .intersect import INF, TrianglePrep
 
 _BIG = 3.0e37
@@ -66,6 +68,9 @@ launches = {"closest": 0, "any": 0}
 ungated_launches = {"closest": 0, "any": 0}
 # trace_tris_blocks calls per selected variant, twin or kernel alike
 selected = {"gated": 0, "ungated": 0}
+# dev instrumentation sink (RUSTRAY_TRACE_STATS=1): per trace_tris_blocks
+# call, (mode, nb, sum, max, mean) of the blocks' visit-list lengths
+_TRACE_STATS = []
 
 
 def reset_launches() -> None:
@@ -527,6 +532,20 @@ def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):
     return count, rays, order, entry
 
 
+def _census(count, mode: str) -> None:
+    """Append the visit-list population of one call to ``_TRACE_STATS``
+    (an upper bound on the walk's visits; the early exit only shrinks it).
+    It reads the device, so it runs eagerly only, as the JAX package's
+    host callback runs on its CPU backend only."""
+    if graphs.capturing():
+        raise ValueError("RUSTRAY_TRACE_STATS is set, but its census reads "
+                         "the device, which a CUDA graph capture cannot: "
+                         "unset it, or render eagerly "
+                         "(render/wavefront._CAPTURE = False)")
+    _TRACE_STATS.append((mode, int(count.shape[0]), int(count.sum()),
+                         int(count.max()), float(count.float().mean())))
+
+
 def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
                       cl_ok, cluster_size: int, block_n: int = 512,
                       mode: str = "closest", interpret: bool = False):
@@ -551,6 +570,8 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     n = o.shape[0]
     count, rays, order, entry = prepare_walk(o, d, alive, t_max, w_lo, w_hi,
                                              cl_ok, block_n)
+    if os.environ.get("RUSTRAY_TRACE_STATS"):
+        _census(count, mode)
     gated = pack_is_gated(pack)
     selected["gated" if gated else "ungated"] += 1
     t, idx = block_walk(count, rays, order, entry, pack, mode, interpret,

@@ -15,8 +15,9 @@ per octet (8 consecutive rays):
     exactly), up to 4 more clusters per octet in (entry, id) order, their
     hits folded in, and ``over``: more than 4 clusters were left.
 3.  Octets over 4 fall back to the block walk for exactly those rays (its
-    own ``block_n`` of 128), under a host-side ``if`` so the cost is paid
-    only when triggered.
+    own ``block_n`` of 128), under a gate (:func:`..graphs.cond`: a host
+    ``if`` eagerly, an IF node in a CUDA graph) so the cost is paid only
+    when triggered.
 
 Each round is one kernel of ``csrc/octet_trace.cu`` on CUDA tensors, with
 the selection fused in, and its plain torch twin on CPU tensors or under
@@ -511,19 +512,26 @@ def _trace_slice(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok, K, mode,
                                 interpret)
 
     # octets with more than _R1_SLOTS filtered clusters left re-trace
-    # through the always-complete block walk (rare; exactness is kept);
-    # the one host sync decides whether it runs, as the JAX lax.cond does
-    # (a captured graph always runs it: no ray over walks nothing)
+    # through the always-complete block walk (rare; exactness is kept),
+    # gated as the JAX lax.cond is
     over_r = over.repeat_interleave(8) & alive
-    if graphs.any_live(over_r):
+    n = o.shape[0]
+
+    def walk():
         fallback["calls"] += 1
         _count_fallback_rays(over_r.sum())
         _, fb_i, fb_t = trace_tris_blocks(o, d, over_r, t_max, prep, w_lo,
                                           w_hi, cl_ok, K, block_n=block_n,
                                           mode=mode, interpret=interpret)
-        better = fb_t < t
-        t = torch.where(better, fb_t, t)
-        idx = torch.where(better, fb_i, idx)
+        return fb_i, fb_t
+
+    fb_i, fb_t = graphs.cond(
+        over_r, walk,
+        lambda: (torch.zeros((n,), dtype=torch.int32, device=o.device),
+                 torch.full((n,), INF, device=o.device)), "fallback")
+    better = fb_t < t
+    t = torch.where(better, fb_t, t)
+    idx = torch.where(better, fb_i, idx)
     return t < INF, idx, t
 
 
@@ -570,16 +578,16 @@ def trace_tris_octets(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok,
     for s0 in range(0, n + pad, sl):
         s1 = s0 + sl
         a_sl = alive[s0:s1]
-        # a slice with no live ray is skipped outright (not in a captured
-        # graph: its dead rays find nothing)
-        if graphs.any_live(a_sl):
-            f, i, t = _trace_slice(o[s0:s1], d[s0:s1], a_sl, t_max[s0:s1],
-                                   prep, w_lo, w_hi, cl_ok, cluster_size,
-                                   mode, block_n, interpret)
-        else:
-            f = torch.zeros((sl,), dtype=torch.bool, device=dev)
-            i = torch.zeros((sl,), dtype=torch.int32, device=dev)
-            t = torch.full((sl,), INF, device=dev)
+        # a slice with no live ray is skipped outright
+        f, i, t = graphs.cond(
+            a_sl,
+            lambda: _trace_slice(o[s0:s1], d[s0:s1], a_sl, t_max[s0:s1],
+                                 prep, w_lo, w_hi, cl_ok, cluster_size,
+                                 mode, block_n, interpret),
+            lambda: (torch.zeros((sl,), dtype=torch.bool, device=dev),
+                     torch.zeros((sl,), dtype=torch.int32, device=dev),
+                     torch.full((sl,), INF, device=dev)),
+            "slice")
         founds.append(f)
         idxs.append(i)
         ts.append(t)

@@ -289,17 +289,17 @@ def trace_closest(sa, static, prep: TrianglePrep, o, d,
             cl_ok = sa.cl_valid & inst_ok[sa.cl_inst.long()]
             alive_f = alive if alive is not None else torch.ones(
                 (n,), dtype=torch.bool, device=dev)
-            # an all-dead wavefront skips its traversal outright (not in a
-            # captured graph, which walks it: the same outputs)
-            if graphs.any_live(alive_f):
-                found, tri_idx, t_sel = _sorted_mesh_trace(
+            # an all-dead wavefront skips its traversal outright
+            found, tri_idx, t_sel = graphs.cond(
+                alive_f,
+                lambda: _sorted_mesh_trace(
                     sa, static, prep, o, d, alive_f, t_max, tri_ok, cl_ok,
                     accel_boxes, accel_impl, accel_block, accel_gather,
-                    block_n, pallas_interpret, for_shadow, pallas_algo)
-            else:
-                found = torch.zeros((n,), dtype=torch.bool, device=dev)
-                tri_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
-                t_sel = torch.full((n,), INF, device=dev)
+                    block_n, pallas_interpret, for_shadow, pallas_algo),
+                lambda: (torch.zeros((n,), dtype=torch.bool, device=dev),
+                         torch.zeros((n,), dtype=torch.int32, device=dev),
+                         torch.full((n,), INF, device=dev)),
+                "traversal")
             if prep.shade_pack is not None:
                 t_tri = selected_t(o, d, prep.shade_pack, tri_idx, found,
                                    t_sel)

@@ -288,15 +288,20 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
 
 
 def _dead_level(n: int, dev):
-    """Outputs of an all-dead level (its trace and shade are skipped)."""
-    z3 = torch.zeros((n, 3), device=dev)
-    zb = torch.zeros((n,), dtype=torch.bool, device=dev)
-    return (z3,
-            dict(depth=torch.zeros((n,), device=dev), normal=z3,
+    """Outputs of an all-dead level (its trace and shade are skipped), each
+    in a tensor of its own (a graph's IF node writes each)."""
+    def z3():
+        return torch.zeros((n, 3), device=dev)
+
+    def zb():
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    return (z3(),
+            dict(depth=torch.zeros((n,), device=dev), normal=z3(),
                  obj_id=torch.zeros((n,), dtype=torch.int32, device=dev)),
-            dict(refl_o=z3, refl_d=z3, w_refl=z3, refr_o=z3, refr_d=z3,
-                 w_refr=z3, spawn_refl=zb, spawn_refr=zb, refr_spawned=zb,
-                 alpha_zero=zb,
+            dict(refl_o=z3(), refl_d=z3(), w_refl=z3(), refr_o=z3(),
+                 refr_d=z3(), w_refr=z3(), spawn_refl=zb(), spawn_refr=zb(),
+                 refr_spawned=zb(), alpha_zero=zb(),
                  n_shadow_rays=torch.zeros((), dtype=torch.int64,
                                            device=dev)))
 
@@ -328,15 +333,17 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
 
     for depth in range(1, n_levels + 1):
         lkey = rng.fold_in(key, depth)
+
+        def shade():
+            return _shade_level(sa, static, prep, cfg, o, d, weight, alive,
+                                depth, lkey, boxes, engine)
+
         # an all-dead level contributes nothing: skip its trace and shade
-        # (not in a captured graph, which shades its dead rays: every
-        # output is masked by alive, so the sums are the same)
-        if depth == 1 or graphs.any_live(alive):
-            emission, aov, ch = _shade_level(sa, static, prep, cfg, o, d,
-                                             weight, alive, depth, lkey,
-                                             boxes, engine)
+        if depth == 1:
+            emission, aov, ch = shade()
         else:
-            emission, aov, ch = _dead_level(o.shape[0], dev)
+            emission, aov, ch = graphs.cond(
+                alive, shade, lambda: _dead_level(o.shape[0], dev), "level")
         traced = traced + alive.sum() + ch["n_shadow_rays"]
         contrib = torch.where(alive[..., None], weight * emission, 0.0)
         if depth == 1:
@@ -448,9 +455,11 @@ def _reduce_cells(n_cells: int, samples, n: int, dev, keep=None):
 # chip_smoke.py holds the captured one against); read at call time
 _CAPTURE = True
 # captures of the chunk program and its replays since reset_graph_stats():
-# counts and the seconds of every capture (warm-up and capture, from a
-# synchronized start to a synchronized end)
-graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0}
+# counts, the seconds of every capture (warm-up and capture, from a
+# synchronized start to a synchronized end) and the IF nodes of those
+# captures per gate ("level", "traversal", "slice", "fallback")
+graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
+               "if_nodes": {}}
 
 # The chunk and frame programs built so far, as the JAX package's
 # _RENDERER_CACHE holds its jitted ones: a render() whose key is cached
@@ -464,7 +473,8 @@ _RENDERER_CACHE: Dict[tuple, object] = {}
 
 
 def reset_graph_stats() -> None:
-    graph_stats.update(captures=0, capture_seconds=0.0, replays=0)
+    graph_stats.update(captures=0, capture_seconds=0.0, replays=0,
+                       if_nodes={})
 
 
 def captures(static, engine: EngineConfig, device) -> bool:
@@ -563,7 +573,10 @@ def _graph_pool(dev):
     are copied out before the next replay, and a graph's inputs, scene
     buffers and outputs stay allocated while it lives, so memory that one
     capture freed and a later one took holds nothing live across replays
-    (in any order of keys, A, B, A included)."""
+    (in any order of keys, A, B, A included).  The bodies of the IF nodes
+    allocate in it too (:func:`graphs.route_to_pool`): their temporaries
+    live only inside their node, and what leaves a body is copied into
+    tensors allocated before the node."""
     key = ("pool", dev)
     if key not in _RENDERER_CACHE:
         _RENDERER_CACHE[key] = torch.cuda.graph_pool_handle()
@@ -571,26 +584,37 @@ def _graph_pool(dev):
 
 
 def _capture_graph(fn, pool):
-    """Capture ``fn()`` in a CUDA graph over ``pool``; returns (its
-    outputs, the graph's replay)."""
+    """Capture ``fn()`` in a CUDA graph over ``pool``, the bodies of its
+    conditional nodes included; returns (its outputs, the graph's
+    replay)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        out = fn()
+    dev = torch.cuda.current_device()
+    routed = False
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            graphs.route_to_pool(dev, pool)
+            routed = True
+            out = fn()
+    finally:
+        if routed:
+            graphs.release_pool(dev, pool)
     return out, graph.replay
 
 
-def _warm_up(fn, dev) -> None:
+def _warm_up(fn, dev):
     """Run ``fn()`` eagerly as a capture records it, on a side stream (so
-    every kernel the graph launches is loaded before the capture)."""
-    with graphs.unconditional():
+    every kernel the graph launches, in every branch, is loaded before the
+    capture); returns the :class:`graphs.Census` of its gates."""
+    with graphs.unconditional() as census:
         if dev.type != "cuda":
             fn()
-            return
+            return census
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream(dev).wait_stream(side)
+    return census
 
 
 def _sync(dev) -> None:
@@ -626,15 +650,34 @@ class _SampleGraph:
         t0 = time.perf_counter()
         octet_trace.rays_accumulator(dev)
         self.rays = octet_trace.fallback["rays"]
-        _warm_up(sample, dev)
+        census = _warm_up(sample, dev)
         before = graphs.snapshot()
-        self.outputs, self.replay = _capture_graph(sample, self.pool)
+        with graphs.recording(dev, census) as rec:
+            self.outputs, self.replay = _capture_graph(sample, self.pool)
         after = graphs.snapshot()
         graphs.restore(before)
         _sync(dev)
-        self.delta = [a - b for a, b in zip(after, before)]
+        # what a replay launches whatever its IF nodes decide, and per node
+        # what its own body launches each time it runs
+        self.delta = [a - b - c for a, b, c in zip(after, before, rec.delta)]
+        self.runs, self.site_deltas = rec.runs, rec.deltas
+        self.pending = 0
         graph_stats["captures"] += 1
         graph_stats["capture_seconds"] += time.perf_counter() - t0
+        # a new dict: a copy of graph_stats taken earlier keeps its counts
+        nodes = dict(graph_stats["if_nodes"])
+        for site in rec.sites:
+            nodes[site] = nodes.get(site, 0) + 1
+        graph_stats["if_nodes"] = nodes
+
+    def _settle(self, runs) -> None:
+        """Add the launches of the replays since the last fetch, ``runs``
+        being the host copy of the nodes' run counts."""
+        delta = [self.pending * u for u in self.delta]
+        for site_delta, n in zip(self.site_deltas, runs.tolist()):
+            delta = [d + n * s for d, s in zip(delta, site_delta)]
+        graphs.add(delta)
+        self.pending = 0
 
     def run(self, px, py, valid, cells, keys, cell_valid):
         """:func:`build_chunk_fn`'s outputs for cells (S, 2) and their keys
@@ -655,10 +698,14 @@ class _SampleGraph:
             for i, cv in enumerate(cell_valid):
                 if not cv:
                     continue
+                if not self.pending:
+                    # the first replay since the last fetch
+                    self.runs.zero_()
+                    graphs.defer(self.runs, self._settle)
                 self.inputs[3].copy_(cells[i])
                 self.inputs[4].copy_(keys[i])
                 self.replay()
-                graphs.add(self.delta)
+                self.pending += 1
                 graph_stats["replays"] += 1
                 yield self.outputs
 
@@ -717,9 +764,12 @@ def make_chunk_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
     its jitted function.
 
     Every cached graph of a device captures into one memory pool
-    (:func:`_graph_pool`).  Its outputs equal build_chunk_fn's bit for bit;
-    its kernels run on all-dead work where build_chunk_fn skips it
-    (:mod:`..graphs`)."""
+    (:func:`_graph_pool`).  Its outputs equal build_chunk_fn's bit for bit,
+    and its IF nodes skip the all-dead work that build_chunk_fn skips, so
+    a replay launches what build_chunk_fn launches (:mod:`..graphs`).  Its
+    launch counts are added at the next :func:`graphs.fetch` (render()
+    fetches once per group of cells; a direct caller calls
+    :func:`graphs.settle` before it reads them)."""
     key = _config_key(static, cfg, engine, n_levels, scene)
     cached = _RENDERER_CACHE.get(key)
     if cached is not None:
@@ -919,7 +969,8 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
         py = (idx_c // W).to(torch.int32)
         *out, drops, traced = fn(*scene, px, py, valid, cells, cell_idx,
                                  cell_valid, rng.fold_in(key, start))
-        return out, int(drops), int(traced)
+        n_drop, n_traced = graphs.fetch(torch.stack([drops, traced]))
+        return out, int(n_drop), int(n_traced)
 
     def raise_and_rerender(start, n_drop):
         """Re-render a chunk that dropped ``n_drop`` live rays, with the
@@ -973,7 +1024,7 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
             depth += dpt
             normal += nrm
             obj_id = oid
-            counts = torch.stack([dr, tr]).cpu().numpy()
+            counts = graphs.fetch(torch.stack([dr, tr]))
             drops += counts[0]
             device_rays += int(counts[1].sum())
         # chunks that dropped live rays re-render in chunk order

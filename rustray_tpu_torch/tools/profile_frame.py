@@ -4,7 +4,7 @@
 Usage (repository root, one CUDA card):
 
     python -m rustray_tpu_torch.tools.profile_frame [block|octet|ungated]
-        [samples]
+        [samples] [eager]
 
 Renders the frame once unprofiled and once profiled (after a 320x180
 warm-up), with the bench engine settings of ``chip_smoke.py`` (chunk
@@ -13,7 +13,11 @@ warm-up), with the bench engine settings of ``chip_smoke.py`` (chunk
 pack budget forced to 0 (K2).  ``render()`` takes its frame path, so the
 chunk program runs as CUDA graphs: the unprofiled frame captures them (a
 warm-up and a capture per queue factor) and replays them once per chunk
-and cell; the profiled frame replays the cached graphs.
+and cell; the profiled frame replays the cached graphs.  With ``eager``
+both frames run the chunk program eagerly instead, with its host syncs
+(``render/wavefront._CAPTURE = False``: the program the graphs are held
+to).  Each run is a process of its own, as the profiler's state after
+long sessions in one process was seen to drop device events.
 It prints the captures, their seconds and the replays of each frame, and,
 from the profiler's trace, the profiled wall, the device's busy time (the
 union of its kernel, copy and memset intervals), the idle share (1 - busy /
@@ -65,8 +69,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     algo = argv[0] if argv else "block"
     samples = int(argv[1]) if len(argv) > 1 else 1
-    if algo not in ("block", "octet", "ungated"):
-        raise SystemExit(f"profile_frame: unknown path {algo!r}")
+    eager = argv[2:] == ["eager"]
+    if algo not in ("block", "octet", "ungated") or argv[2:] not in (
+            [], ["eager"]):
+        raise SystemExit(f"profile_frame: unknown arguments {argv!r}")
     device_or_exit("profile_frame", "cuda")
     engine = EngineConfig(chunk_pixels=32768, pallas_block=128,
                           queue_factor=1.0)
@@ -75,6 +81,7 @@ def main(argv=None) -> int:
     budget = bt._VMEM_PACK_BUDGET
     if algo == "ungated":
         bt._VMEM_PACK_BUDGET = 0
+    wavefront._CAPTURE = not eager
     try:
         small = load_bench_scene(320, 180)
         sa, st = to_torch(*small.compile(), "cuda")
@@ -93,11 +100,14 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         g = dict(wavefront.graph_stats)
         from ..build import BUILD_DIR
-        trace = os.path.join(BUILD_DIR, f"trace_{algo}.json")
+        trace = os.path.join(BUILD_DIR, f"trace_{algo}{'_eager' * eager}"
+                             ".json")
         out, p = profile(lambda: render(sa, st, cfg, engine), trace)
     finally:
         bt._VMEM_PACK_BUDGET = budget
-    print(f"{algo}: 1280x720 {samples} spp: wall {wall:.3f} s unprofiled "
+        wavefront._CAPTURE = True
+    print(f"{algo}{' eager' * eager}: 1280x720 {samples} spp: wall "
+          f"{wall:.3f} s unprofiled "
           f"({g['captures']} captures in {g['capture_seconds']:.3f} s, "
           f"{g['replays']} replays), {p['wall']:.3f} s profiled; device busy "
           f"{p['busy']:.3f} s, idle share {p['idle']:.3f}; device rays "

@@ -40,7 +40,7 @@ def _sync(dev) -> None:
 def probe(sa, static, cfg, engine, samples: int):
     """The split of one frame at ``samples`` per pixel; returns the
     seconds of each column (also printed)."""
-    from .. import rng
+    from .. import graphs, rng
     from ..render import wavefront
     from ..utils.mathutil import sample_pattern
     dev = sa.verts.device
@@ -84,6 +84,7 @@ def probe(sa, static, cfg, engine, samples: int):
     _sync(dev)
     t3 = time.perf_counter()
     [[x.cpu().numpy() for x in o] for o in outs]
+    graphs.settle()                 # the replays' launch counts
     t4 = time.perf_counter()
     split = dict(chunks=len(starts), capture=t_cap, args=t1 - t0,
                  dispatch=t2 - t1, completion=t3 - t2, fetch=t4 - t3,
@@ -110,6 +111,7 @@ def probe(sa, static, cfg, engine, samples: int):
         from .profile_frame import profile
         _, p = profile(lambda: [rend(*a) for a in argsets],
                        os.path.join(BUILD_DIR, "trace_walltime.json"))
+        graphs.settle()
         split.update(profiled=p["wall"], busy=p["busy"], idle=p["idle"])
         print(f"dispatch+completion profiled again: {p['wall']:.3f} s, "
               f"device busy {p['busy']:.3f} s, idle share {p['idle']:.3f}")

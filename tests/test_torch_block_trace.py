@@ -361,3 +361,36 @@ def test_walk_cuda_refuses_other_slab_widths():
         bt._walk_cuda(count, rays, order, entry, torch.zeros((2, 16, K)),
                       "closest")
     assert bt.launches == bt.ungated_launches == {"closest": 0, "any": 0}
+
+
+def test_trace_stats_match_jax(accel, monkeypatch):
+    """RUSTRAY_TRACE_STATS: per trace call, (mode, nb, sum, max, mean) of
+    the blocks' visit lists, the same tuples in both packages on the same
+    rays (the JAX package's through jax.debug.callback on the CPU)."""
+    import jax
+    monkeypatch.setenv("RUSTRAY_TRACE_STATS", "1")
+    monkeypatch.setattr(j_bt, "_TRACE_STATS", [])
+    monkeypatch.setattr(bt, "_TRACE_STATS", [])
+    prep = accel["prep"]
+    for name, o, d, alive in _batches(accel["sa"], 512):
+        for mode in ("closest", "any"):
+            j_bt.trace_tris_blocks(
+                o, d, alive, None, prep, accel["w_lo"], accel["w_hi"],
+                jnp.asarray(accel["cl_ok"]), accel["static"].cluster_size,
+                block_n=256, mode=mode, interpret=True)
+            _trace(accel, o, d, alive, mode=mode)
+    jax.effects_barrier()
+    assert len(bt._TRACE_STATS) == 4
+    assert all(s[2] > 0 for s in bt._TRACE_STATS)
+    assert bt._TRACE_STATS == j_bt._TRACE_STATS
+
+
+def test_trace_stats_refuse_a_capture(accel, monkeypatch):
+    """The census reads the device: while a capture runs (or its
+    unconditional warm-up), it raises, naming the variable."""
+    from rustray_tpu_torch import graphs
+    monkeypatch.setenv("RUSTRAY_TRACE_STATS", "1")
+    _, o, d, alive = _batches(accel["sa"], 64)[0]
+    with graphs.unconditional():
+        with pytest.raises(ValueError, match="RUSTRAY_TRACE_STATS"):
+            _trace(accel, o, d, alive)
