@@ -19,6 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import spans
 from . import native
 
 
@@ -82,6 +83,7 @@ def _build_native(lib, verts: np.ndarray, tris: np.ndarray, max_leaf: int):
     return perm, counts[:nc].copy(), aabb[:nc].copy()
 
 
+@spans.timed("session.bvh")
 def build_clusters(verts: np.ndarray, tris: np.ndarray,
                    max_leaf: int = 128) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (perm (T,) int32, counts (C,) int32, aabbs (C, 6) float32).

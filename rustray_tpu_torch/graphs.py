@@ -16,14 +16,18 @@ Gates nest (a level holds traversals, a traversal slices, a slice its
 fallback); a body stream is itself capturing, so the inner gates become
 nodes inside the outer node's body, one body stream per depth.
 
-The launch counters of ops/block_trace and ops/octet_trace are Python
-integers that a wrapper bumps where it launches its kernel.  A replay runs
+The launch counters of ops/block_trace and ops/octet_trace (and the
+block walks' census of calls and blocks) are Python integers that a
+wrapper bumps where it launches its kernel.  A replay runs
 no Python.  So a capture records, for each gate, what its own body added to
 the counters (:func:`snapshot` around it, less the gates nested in it),
 and what the graph adds whatever the gates decide; the graph counts on the
 device how often each gate's body ran (``runs``).  A replayed graph owes
 ``replays x unconditional + sum(site delta x runs[site])``, settled at the
-next :func:`fetch`, the one host copy of a group of replays.
+next :func:`fetch`, the one host copy of a group of replays.  Counts of
+what the device computes (the octet fallback's rays, the census's list
+entries) are device tensors that the program adds to in place
+(:func:`count_on_device`), so a replay adds to them itself.
 """
 from __future__ import annotations
 
@@ -308,7 +312,59 @@ def _counters():
     from .ops import octet_trace as ot
     return ([(d, k) for d in (bt.launches, bt.ungated_launches, bt.selected,
                               ot.launches, ot.rounds) for k in d]
+            + [(bt.census[m], k) for m in bt.census
+               for k in ("calls", "blocks")]
             + [(ot.fallback, "calls"), (launches, "set_if")])
+
+
+def _device_counts():
+    """The counts that the sample program adds to on the device: the octet
+    fallback's rays and the block walks' census entries."""
+    from .ops import block_trace as bt
+    from .ops import octet_trace as ot
+    return [(ot.fallback, "rays")] + [(c, "entries")
+                                      for c in bt.census.values()]
+
+
+def count_on_device(d, k, n) -> None:
+    """Add ``n``, a 0-dim tensor, to the count ``d[k]`` with no host sync:
+    in place where the count is a tensor on ``n``'s device (so that a
+    captured graph adds to it at every replay), else as a new tensor."""
+    r = d[k]
+    if isinstance(r, torch.Tensor) and r.device == n.device:
+        r.add_(n)
+    else:
+        d[k] = r + n
+
+
+def zero_count(d, k) -> None:
+    """Zero a count of :func:`count_on_device` (a tensor in place)."""
+    if isinstance(d[k], torch.Tensor):
+        d[k].zero_()
+    else:
+        d[k] = 0
+
+
+def device_counts(device):
+    """Before a capture: every device count an int64 tensor on ``device``
+    (a graph adds to the tensors it was captured with).  Returns
+    ((dict, key), tensor) pairs, for :func:`carry_over`."""
+    device = torch.device(device)
+    for d, k in _device_counts():
+        r = d[k]
+        if not (isinstance(r, torch.Tensor) and r.device == device):
+            d[k] = torch.full((), int(r), dtype=torch.int64, device=device)
+    return [((d, k), d[k]) for d, k in _device_counts()]
+
+
+def carry_over(counts) -> None:
+    """Before a replay: put back the tensors ``counts`` of
+    :func:`device_counts` where a count moved to another tensor since (a
+    walk on another device), with the count it holds."""
+    for (d, k), t in counts:
+        if d[k] is not t:
+            t.copy_(torch.as_tensor(d[k]))
+            d[k] = t
 
 
 def reset_launches() -> None:

@@ -38,7 +38,6 @@ wins exact-t ties.
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
@@ -68,15 +67,23 @@ launches = {"closest": 0, "any": 0}
 ungated_launches = {"closest": 0, "any": 0}
 # trace_tris_blocks calls per selected variant, twin or kernel alike
 selected = {"gated": 0, "ungated": 0}
-# dev instrumentation sink (RUSTRAY_TRACE_STATS=1): per trace_tris_blocks
-# call, (mode, nb, sum, max, mean) of the blocks' visit-list lengths
-_TRACE_STATS = []
+# the census of the walks, per mode: trace_tris_blocks calls, their blocks
+# (visit lists) and the lists' entries (an upper bound on the clusters the
+# walk visits: the early exit only shrinks it).  calls and blocks are host
+# integers that a replay settles at graphs.fetch; entries is a device
+# tensor once a walk ran, added to in place (a captured graph adds to it at
+# every replay), so counting never waits for the device
+census = {m: {"calls": 0, "blocks": 0, "entries": 0} for m in _MODES}
 
 
 def reset_launches() -> None:
+    """Zero the launch and call counters and the census (its entries in
+    place)."""
     for m in _MODES:
         launches[m] = 0
         ungated_launches[m] = 0
+        census[m]["calls"] = census[m]["blocks"] = 0
+        graphs.zero_count(census[m], "entries")
     selected["gated"] = selected["ungated"] = 0
 
 
@@ -532,18 +539,13 @@ def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):
     return count, rays, order, entry
 
 
-def _census(count, mode: str) -> None:
-    """Append the visit-list population of one call to ``_TRACE_STATS``
-    (an upper bound on the walk's visits; the early exit only shrinks it).
-    It reads the device, so it runs eagerly only, as the JAX package's
-    host callback runs on its CPU backend only."""
-    if graphs.capturing():
-        raise ValueError("RUSTRAY_TRACE_STATS is set, but its census reads "
-                         "the device, which a CUDA graph capture cannot: "
-                         "unset it, or render eagerly "
-                         "(render/wavefront._CAPTURE = False)")
-    _TRACE_STATS.append((mode, int(count.shape[0]), int(count.sum()),
-                         int(count.max()), float(count.float().mean())))
+def _count_walk(count, mode: str) -> None:
+    """Add one walk's visit lists ``count`` (NB,) to the ``census``: a
+    cast, a reduction and an add on the device, no host sync."""
+    c = census[mode]
+    c["calls"] += 1
+    c["blocks"] += int(count.shape[0])
+    graphs.count_on_device(c, "entries", count.sum(dtype=torch.int64))
 
 
 def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
@@ -570,8 +572,7 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     n = o.shape[0]
     count, rays, order, entry = prepare_walk(o, d, alive, t_max, w_lo, w_hi,
                                              cl_ok, block_n)
-    if os.environ.get("RUSTRAY_TRACE_STATS"):
-        _census(count, mode)
+    _count_walk(count, mode)
     gated = pack_is_gated(pack)
     selected["gated" if gated else "ungated"] += 1
     t, idx = block_walk(count, rays, order, entry, pack, mode, interpret,

@@ -61,27 +61,7 @@ def reset_counts() -> None:
         launches[k] = 0
         rounds[k] = 0
     fallback["calls"] = 0
-    if isinstance(fallback["rays"], torch.Tensor):
-        fallback["rays"].zero_()
-    else:
-        fallback["rays"] = 0
-
-
-def rays_accumulator(device) -> None:
-    """Make ``fallback["rays"]`` an int64 tensor on ``device`` (before a
-    capture: a graph adds to the tensor it was captured with)."""
-    r = fallback["rays"]
-    if not (isinstance(r, torch.Tensor) and r.device == torch.device(device)):
-        fallback["rays"] = torch.full((), int(r), dtype=torch.int64,
-                                      device=device)
-
-
-def _count_fallback_rays(n) -> None:
-    r = fallback["rays"]
-    if isinstance(r, torch.Tensor) and r.device == n.device:
-        r.add_(n)
-    else:
-        fallback["rays"] = r + n
+    graphs.zero_count(fallback, "rays")
 
 
 # --------------------------------------------------------------------------
@@ -519,7 +499,7 @@ def _trace_slice(o, d, alive, t_max, prep, w_lo, w_hi, cl_ok, K, mode,
 
     def walk():
         fallback["calls"] += 1
-        _count_fallback_rays(over_r.sum())
+        graphs.count_on_device(fallback, "rays", over_r.sum())
         _, fb_i, fb_t = trace_tris_blocks(o, d, over_r, t_max, prep, w_lo,
                                           w_hi, cl_ok, K, block_n=block_n,
                                           mode=mode, interpret=interpret)

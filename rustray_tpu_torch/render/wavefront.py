@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict
 
 import numpy as np
 import torch
 
-from .. import graphs, rng
+from .. import graphs, rng, spans
 from ..config import EngineConfig, RaytracingConfig
 from ..ops import rays as rays_ops
 from ..ops import shade as shade_ops
@@ -424,7 +423,8 @@ def build_chunk_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
                                  rng.fold_in(key, int(idx)))
                    for cell, idx, cv in zip(cells, cell_idx, cell_valid)
                    if bool(cv))
-        return _reduce_cells(len(cells), samples, px.shape[0], px.device)
+        with spans.span("chunk.dispatch"):
+            return _reduce_cells(len(cells), samples, px.shape[0], px.device)
 
     return chunk_fn
 
@@ -455,9 +455,10 @@ def _reduce_cells(n_cells: int, samples, n: int, dev, keep=None):
 # chip_smoke.py holds the captured one against); read at call time
 _CAPTURE = True
 # captures of the chunk program and its replays since reset_graph_stats():
-# counts, the seconds of every capture (warm-up and capture, from a
-# synchronized start to a synchronized end) and the IF nodes of those
-# captures per gate ("level", "traversal", "slice", "fallback")
+# counts, the seconds of every capture (its ``chunk.capture`` span: warm-up
+# and capture, from a synchronized start to a synchronized end) and the IF
+# nodes of those captures per gate ("level", "traversal", "slice",
+# "fallback")
 graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
                "if_nodes": {}}
 
@@ -636,7 +637,6 @@ class _SampleGraph:
         self.inputs = None
 
     def _capture(self, ins):
-        from ..ops import octet_trace
         static, cfg, engine, n_levels = self.args
         sa, prep, boxes = self.scene
         dev = ins[0].device
@@ -647,23 +647,22 @@ class _SampleGraph:
                                  boxes, *self.inputs)
 
         _sync(dev)
-        t0 = time.perf_counter()
-        octet_trace.rays_accumulator(dev)
-        self.rays = octet_trace.fallback["rays"]
-        census = _warm_up(sample, dev)
-        before = graphs.snapshot()
-        with graphs.recording(dev, census) as rec:
-            self.outputs, self.replay = _capture_graph(sample, self.pool)
-        after = graphs.snapshot()
-        graphs.restore(before)
-        _sync(dev)
+        with spans.span("chunk.capture") as captured:
+            self.counts = graphs.device_counts(dev)
+            census = _warm_up(sample, dev)
+            before = graphs.snapshot()
+            with graphs.recording(dev, census) as rec:
+                self.outputs, self.replay = _capture_graph(sample, self.pool)
+            after = graphs.snapshot()
+            graphs.restore(before)
+            _sync(dev)
         # what a replay launches whatever its IF nodes decide, and per node
         # what its own body launches each time it runs
         self.delta = [a - b - c for a, b, c in zip(after, before, rec.delta)]
         self.runs, self.site_deltas = rec.runs, rec.deltas
         self.pending = 0
         graph_stats["captures"] += 1
-        graph_stats["capture_seconds"] += time.perf_counter() - t0
+        graph_stats["capture_seconds"] += captured.seconds
         # a new dict: a copy of graph_stats taken earlier keeps its counts
         nodes = dict(graph_stats["if_nodes"])
         for site in rec.sites:
@@ -683,14 +682,10 @@ class _SampleGraph:
         """:func:`build_chunk_fn`'s outputs for cells (S, 2) and their keys
         (S, 2), int64 tensors on the chunk's device: one replay per valid
         cell, reduced in cell order."""
-        from ..ops import octet_trace
         if self.inputs is None:
             self._capture((px, py, valid, cells[0], keys[0]))
-        elif octet_trace.fallback["rays"] is not self.rays:
-            # the graph adds the fallback's rays to the tensor it was
-            # captured with: carry the count over to it
-            self.rays.copy_(torch.as_tensor(octet_trace.fallback["rays"]))
-            octet_trace.fallback["rays"] = self.rays
+        else:
+            graphs.carry_over(self.counts)
         for buf, x in zip(self.inputs, (px, py, valid)):
             buf.copy_(x)
 
@@ -739,11 +734,13 @@ def _graph_chunk_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
                 "the ones the chunk program was made for (or the pack "
                 "selects another walk); make_chunk_renderer makes one for "
                 "them")
-        _refresh(bound, (sa, prep, boxes))
-        dev = px.device
-        keys = [rng.fold_in(key, int(i)).numpy() for i in cell_idx]
-        return graph.run(px, py, valid, _upload(cells, dev),
-                         _upload(keys, dev), [bool(v) for v in cell_valid])
+        with spans.span("chunk.dispatch"):
+            _refresh(bound, (sa, prep, boxes))
+            dev = px.device
+            keys = [rng.fold_in(key, int(i)).numpy() for i in cell_idx]
+            return graph.run(px, py, valid, _upload(cells, dev),
+                             _upload(keys, dev),
+                             [bool(v) for v in cell_valid])
 
     return chunk_fn
 
@@ -910,19 +907,31 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
     their chunk programs from ``_RENDERER_CACHE`` (one per queue factor):
     a later call of the same key builds and captures nothing and replays
     the CUDA graphs over its own scene tensors, copied into the cached
-    buffers once at its start (:func:`bind_scene`)."""
-    engine = engine or EngineConfig()
+    buffers once at its start (:func:`bind_scene`).
+
+    The call is the ``render`` span, its stages the ``render.*`` spans
+    (:mod:`..spans`)."""
+    with spans.span("render"):
+        return _render(sa, static, cfg, engine or EngineConfig(),
+                       checkpoint_path, max_chunks, preview_path,
+                       preview_every)
+
+
+def _render(sa, static, cfg, engine, checkpoint_path, max_chunks,
+            preview_path, preview_every):
     dev = sa.verts.device
     W, H = static.width, static.height
     n_pix = W * H
-    n_levels = frame_levels(sa, cfg)
     chunk = min(engine.chunk_pixels, n_pix)
-    cells = sample_pattern(cfg.samples, engine.seed)
     key = rng.PRNGKey(engine.seed)
-    prep, boxes = prepare_frame(sa, static, engine)
+    with spans.span("render.prepare"):
+        n_levels = frame_levels(sa, cfg)
+        cells = sample_pattern(cfg.samples, engine.seed)
+        prep, boxes = prepare_frame(sa, static, engine)
     # what the chunk programs read: on the card, the cached graphs' buffers
     # holding this frame's tensors
-    scene = bind_scene(sa, prep, boxes, static, engine)
+    with spans.span("render.bind"):
+        scene = bind_scene(sa, prep, boxes, static, engine)
 
     color = torch.zeros((n_pix, 3), device=dev)
     depth = torch.zeros((n_pix,), device=dev)
@@ -934,8 +943,9 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
 
     # checkpoint identity: anything that changes per-chunk numerics,
     # the scene content included
-    fingerprint = repr((W, H, chunk, cfg, engine, n_levels,
-                        _scene_fingerprint(sa, static)))
+    with spans.span("render.fingerprint"):
+        fingerprint = repr((W, H, chunk, cfg, engine, n_levels,
+                            _scene_fingerprint(sa, static)))
     cursor = 0
     eng = engine
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
@@ -969,7 +979,8 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
         py = (idx_c // W).to(torch.int32)
         *out, drops, traced = fn(*scene, px, py, valid, cells, cell_idx,
                                  cell_valid, rng.fold_in(key, start))
-        n_drop, n_traced = graphs.fetch(torch.stack([drops, traced]))
+        with spans.span("render.fetch"):
+            n_drop, n_traced = graphs.fetch(torch.stack([drops, traced]))
         return out, int(n_drop), int(n_traced)
 
     def raise_and_rerender(start, n_drop):
@@ -980,19 +991,22 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
         when none ran."""
         nonlocal eng, device_rays, dropped_rays
         out = None
-        while n_drop > 0 and eng.queue_factor < max_qf:
-            new_qf = min(eng.queue_factor * 2.0, max_qf)
-            print(f"info: {n_drop} live secondary rays beyond "
-                  f"queue_factor={eng.queue_factor}; re-rendering chunk "
-                  f"with queue_factor={new_qf}")
-            eng = dataclasses.replace(eng, queue_factor=new_qf)
-            out, n_drop, traced = render_chunk(start, eng)
-            device_rays += traced
-        if n_drop:
-            print(f"warning: dropped {n_drop} live secondary rays at "
-                  f"queue_factor={eng.queue_factor} (cap {max_qf}); image "
-                  f"may deviate from the full Whitted tree")
-            dropped_rays += n_drop
+        if not n_drop:
+            return out
+        with spans.span("render.rerender"):
+            while n_drop > 0 and eng.queue_factor < max_qf:
+                new_qf = min(eng.queue_factor * 2.0, max_qf)
+                print(f"info: {n_drop} live secondary rays beyond "
+                      f"queue_factor={eng.queue_factor}; re-rendering chunk "
+                      f"with queue_factor={new_qf}")
+                eng = dataclasses.replace(eng, queue_factor=new_qf)
+                out, n_drop, traced = render_chunk(start, eng)
+                device_rays += traced
+            if n_drop:
+                print(f"warning: dropped {n_drop} live secondary rays at "
+                      f"queue_factor={eng.queue_factor} (cap {max_qf}); "
+                      f"image may deviate from the full Whitted tree")
+                dropped_rays += n_drop
         return out
 
     def put_chunk(start, out):
@@ -1017,24 +1031,27 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
         drops = np.zeros((n_chunks,), np.int64)
         for g0 in range(0, len(cells), per):
             g1 = min(g0 + per, len(cells))
-            c, dpt, nrm, oid, dr, tr = frame(*scene, cells[g0:g1],
-                                             cell_idx[g0:g1],
-                                             cell_valid[g0:g1], key)
-            color += c
-            depth += dpt
-            normal += nrm
-            obj_id = oid
-            counts = graphs.fetch(torch.stack([dr, tr]))
-            drops += counts[0]
-            device_rays += int(counts[1].sum())
+            with spans.span("render.group"):
+                c, dpt, nrm, oid, dr, tr = frame(*scene, cells[g0:g1],
+                                                 cell_idx[g0:g1],
+                                                 cell_valid[g0:g1], key)
+                color += c
+                depth += dpt
+                normal += nrm
+                obj_id = oid
+                with spans.span("render.fetch"):
+                    counts = graphs.fetch(torch.stack([dr, tr]))
+                drops += counts[0]
+                device_rays += int(counts[1].sum())
         # chunks that dropped live rays re-render in chunk order
         for ci in np.nonzero(drops)[0]:
             start = int(ci) * chunk
             out = raise_and_rerender(start, int(drops[ci]))
             if out is not None:
                 put_chunk(start, out)
-        return finish_frame(color, depth, normal, obj_id, cfg, W, H,
-                            device_rays, dropped_rays)
+        with spans.span("render.finish"):
+            return finish_frame(color, depth, normal, obj_id, cfg, W, H,
+                                device_rays, dropped_rays)
 
     # the checkpoint/preview path: chunk by chunk, each fetched
     starts = list(range(cursor, n_pix, chunk))
@@ -1065,8 +1082,9 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
             checkpoint_path):
         os.remove(checkpoint_path)
 
-    return finish_frame(color, depth, normal, obj_id, cfg, W, H,
-                        device_rays, dropped_rays)
+    with spans.span("render.finish"):
+        return finish_frame(color, depth, normal, obj_id, cfg, W, H,
+                            device_rays, dropped_rays)
 
 
 def finish_frame(color, depth, normal, obj_id, cfg: RaytracingConfig, W: int,

@@ -15,12 +15,12 @@ from __future__ import annotations
 
 import datetime
 import os
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
 
+from . import spans
 from .config import EngineConfig, RaytracingConfig
 from .render.post import run_post_processing
 from .render.wavefront import render
@@ -37,15 +37,15 @@ class Stats:  # src/run.rs:45-95
     frame: int = 0
     output_time: datetime.datetime = field(default_factory=datetime.datetime.now)
     completed: bool = False
-    rays_per_sec: float = 0.0
+    # the last frame's render() (the ``render`` span)
     last_render_seconds: float = 0.0
-    # the last frame's scene compile and its upload to the device
+    # the last frame's scene compile and its upload to the device (the
+    # ``session.compile`` and ``session.upload`` spans)
     last_compile_seconds: float = 0.0
 
     def reset(self):
         self.frame = 0
         self.completed = False
-        self.rays_per_sec = 0.0
 
 
 class RenderSession:
@@ -74,16 +74,17 @@ class RenderSession:
     # ----- scene init (src/run.rs:196-245) -----
 
     def init_scene(self):
-        scene = Scene()
-        scene.raytracing_config.apply(self.scene.raytracing_config)
-        scene.post_processing = self.scene.post_processing.copy()
-        for path in self.scenes_list:
-            scene.load(path)
-        scene.cam.init(self.width, self.height)
-        scene.find_and_set_default_env_if_needed()
-        scene.apply_frame(self.stats.frame)
-        scene.print()
-        self.scene = scene
+        with spans.span("session.load"):
+            scene = Scene()
+            scene.raytracing_config.apply(self.scene.raytracing_config)
+            scene.post_processing = self.scene.post_processing.copy()
+            for path in self.scenes_list:
+                scene.load(path)
+            scene.cam.init(self.width, self.height)
+            scene.find_and_set_default_env_if_needed()
+            scene.apply_frame(self.stats.frame)
+            scene.print()
+            self.scene = scene
 
     def init(self):
         if self.width == 0 or self.height == 0:
@@ -94,25 +95,24 @@ class RenderSession:
     # ----- frame rendering -----
 
     def render_current_frame(self):
-        self.scene.update()
-        t0 = time.time()
-        sa, static = to_torch(*self.scene.compile(self.width, self.height),
-                              self.device)
-        self.stats.last_compile_seconds = time.time() - t0
-        cfg = self.scene.raytracing_config
-        t0 = time.time()
-        preview_path = None
-        if self.preview:
-            os.makedirs(self.out_dir, exist_ok=True)
-            preview_path = os.path.join(self.out_dir, "preview.png")
-        self.result = render(sa, static, cfg, self.engine,
-                             preview_path=preview_path,
-                             preview_every=max(1, self.preview))
-        elapsed = time.time() - t0
-        self.stats.last_render_seconds = elapsed
-        n_rays = self.width * self.height * cfg.samples
-        self.stats.rays_per_sec = n_rays / max(elapsed, 1e-9)
-        print(f"frame rendered ✅ (rendering time: {elapsed:.3f})")
+        with spans.span("session.frame"):
+            self.scene.update()
+            with spans.span("session.compile") as compiled:
+                arrays = self.scene.compile(self.width, self.height)
+            with spans.span("session.upload") as uploaded:
+                sa, static = to_torch(*arrays, self.device)
+            self.stats.last_compile_seconds = (compiled.seconds
+                                               + uploaded.seconds)
+            preview_path = None
+            if self.preview:
+                os.makedirs(self.out_dir, exist_ok=True)
+                preview_path = os.path.join(self.out_dir, "preview.png")
+            self.result = render(sa, static, self.scene.raytracing_config,
+                                 self.engine, preview_path=preview_path,
+                                 preview_every=max(1, self.preview))
+            elapsed = spans.last["render"]
+            self.stats.last_render_seconds = elapsed
+            print(f"frame rendered ✅ (rendering time: {elapsed:.3f})")
         return self.result
 
     def print_frame_info(self):  # src/run.rs:487-504

@@ -16,6 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import spans
 from ..config import PostProcessingConfig, RaytracingConfig
 from .animation import Animation
 from .camera import Camera, DEFAULT_FOV_DEG
@@ -200,6 +201,7 @@ class Scene:
         for item in self.items:
             item.init()
 
+    @spans.timed("session.update")
     def update(self) -> None:
         for item in self.items:
             item.update()
@@ -207,6 +209,7 @@ class Scene:
     def frame_exists(self, frame: int) -> bool:
         return self.animation.has_animation() and frame < self.animation.get_frames_amount_to_render()
 
+    @spans.timed("session.apply_frame")
     def apply_frame(self, frame: int) -> bool:
         if not self.animation.has_animation() or frame > self.animation.get_frames_amount_to_render():
             return False

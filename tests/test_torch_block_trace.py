@@ -363,34 +363,53 @@ def test_walk_cuda_refuses_other_slab_widths():
     assert bt.launches == bt.ungated_launches == {"closest": 0, "any": 0}
 
 
-def test_trace_stats_match_jax(accel, monkeypatch):
-    """RUSTRAY_TRACE_STATS: per trace call, (mode, nb, sum, max, mean) of
-    the blocks' visit lists, the same tuples in both packages on the same
+def _census():
+    """The port's census as {mode: (calls, blocks, entries)}."""
+    return {m: (c["calls"], c["blocks"], int(c["entries"]))
+            for m, c in bt.census.items()}
+
+
+def test_census_matches_jax(accel, monkeypatch):
+    """The census: per mode, the walks' calls, their blocks and the visit
+    lists' entries, equal to the sums over the JAX package's
+    RUSTRAY_TRACE_STATS tuples (mode, nb, sum, max, mean) on the same
     rays (the JAX package's through jax.debug.callback on the CPU)."""
     import jax
     monkeypatch.setenv("RUSTRAY_TRACE_STATS", "1")
     monkeypatch.setattr(j_bt, "_TRACE_STATS", [])
-    monkeypatch.setattr(bt, "_TRACE_STATS", [])
-    prep = accel["prep"]
+    bt.reset_launches()
     for name, o, d, alive in _batches(accel["sa"], 512):
         for mode in ("closest", "any"):
             j_bt.trace_tris_blocks(
-                o, d, alive, None, prep, accel["w_lo"], accel["w_hi"],
-                jnp.asarray(accel["cl_ok"]), accel["static"].cluster_size,
-                block_n=256, mode=mode, interpret=True)
+                o, d, alive, None, accel["prep"], accel["w_lo"],
+                accel["w_hi"], jnp.asarray(accel["cl_ok"]),
+                accel["static"].cluster_size, block_n=256, mode=mode,
+                interpret=True)
             _trace(accel, o, d, alive, mode=mode)
     jax.effects_barrier()
-    assert len(bt._TRACE_STATS) == 4
-    assert all(s[2] > 0 for s in bt._TRACE_STATS)
-    assert bt._TRACE_STATS == j_bt._TRACE_STATS
+    want = {m: (0, 0, 0) for m in ("closest", "any")}
+    for mode, nb, total, _, _ in j_bt._TRACE_STATS:
+        c, b, e = want[mode]
+        want[mode] = (c + 1, b + nb, e + total)
+    assert want["closest"][0] == want["any"][0] == 2
+    assert all(e > 0 for _, _, e in want.values())
+    assert _census() == want
 
 
-def test_trace_stats_refuse_a_capture(accel, monkeypatch):
-    """The census reads the device: while a capture runs (or its
-    unconditional warm-up), it raises, naming the variable."""
+def test_census_counts_under_a_capture(accel):
+    """While a capture runs (here its unconditional warm-up), the census
+    counts without a host sync and without raising: the same counts as
+    the eager walks on the same rays."""
     from rustray_tpu_torch import graphs
-    monkeypatch.setenv("RUSTRAY_TRACE_STATS", "1")
-    _, o, d, alive = _batches(accel["sa"], 64)[0]
-    with graphs.unconditional():
-        with pytest.raises(ValueError, match="RUSTRAY_TRACE_STATS"):
-            _trace(accel, o, d, alive)
+    counts = []
+    for unconditional in (False, True):
+        bt.reset_launches()
+        for _, o, d, alive in _batches(accel["sa"], 64):
+            if unconditional:
+                with graphs.unconditional():
+                    _trace(accel, o, d, alive)
+            else:
+                _trace(accel, o, d, alive)
+        counts.append(_census())
+    assert counts[0] == counts[1]
+    assert counts[0]["closest"][0] == 2 and counts[0]["closest"][2] > 0

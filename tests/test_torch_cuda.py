@@ -437,6 +437,30 @@ def test_replayed_frame_launches_what_eager_launches(scene, algo):
     assert n[-1] > 0 and e_n[-1] == 0          # set_if: replays only
 
 
+@pytest.mark.parametrize("algo", ["block", "octet"])
+def test_replayed_frame_census_equals_eager(scene, algo):
+    """The block walks' census of a replayed frame (no capture) equals the
+    eager chunk program's: calls and blocks, settled at the fetch, and the
+    entries that the graphs add on the device."""
+    from rustray_tpu_torch.render import wavefront
+    sa, static, cfg = scene
+    eng = EngineConfig(accel="on", chunk_pixels=2048, pallas_algo=algo)
+    wavefront._RENDERER_CACHE.clear()
+    render(sa, static, cfg, eng)
+
+    def census(fn):
+        bt.reset_launches()
+        fn()
+        return {m: (c["calls"], c["blocks"], int(c["entries"]))
+                for m, c in bt.census.items()}
+
+    got = census(lambda: render(sa, static, cfg, eng))
+    want = census(lambda: _eager(lambda: render(sa, static, cfg, eng)))
+    assert got == want
+    if algo == "block":
+        assert all(c > 0 and e > 0 for c, _, e in got.values())
+
+
 @pytest.mark.parametrize("pattern", [("dead", "dead"), ("live", "dead"),
                                      ("some", "some"), ("live", "live")])
 def test_nested_if_nodes(pattern):
