@@ -111,7 +111,19 @@ Phases (each prints its result; any failure raises and exits non-zero):
      replayed (the graphs its first frame captured) and eagerly under
      torch.profiler, each in a process of its own
      (rustray_tpu_torch.tools.profile_frame): device busy time, idle share
-     and the port's kernels' calls in each trace side by side.
+     and the port's kernels' calls in each trace side by side;
+ 17. the block-list kernel (csrc/block_lists.cu, the interval test of
+     ops/block_trace._block_lists) on the main path's shapes: the middle
+     chunk of the bench frame captured with the CLI's engine (65,536
+     pixels, queue factor 4), its level-1 primary and shadow rays and its
+     level-3 shadow rays (NB 512, 1,536 and 6,144 blocks of 128 against
+     2,593 clusters), coherence-sorted as the walks see them: keys,
+     descriptors, counts and the sorted lists equal to the twin's bit for
+     bit, the kernel timed beside the twin and its bound (FP32 operations
+     the inputs need at 67 TFLOP/s, or the bytes at 3.35 TB/s).  Every
+     frame of phases 4, 6, 7, 12 and 14 checks that it launched once per
+     walk (list_launches equal to K1's and K2's launches, eager and
+     replayed).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -149,7 +161,11 @@ TPU_CONDS = ("rustray_tpu/render/wavefront.py:383",
              "rustray_tpu/ops/traverse.py:331",
              "rustray_tpu/ops/octet_trace.py:306",
              "rustray_tpu/ops/octet_trace.py:361")
-KERNEL_SOURCES = ("block_trace", "octet_trace", "octet_bench", "graph_cond")
+# the JAX package's block-list prologue, which XLA fuses: no Pallas kernel
+TPU_LISTS = ("none: rustray_tpu/ops/block_trace.py::_block_lists is XLA, "
+             "not Pallas")
+KERNEL_SOURCES = ("block_trace", "block_lists", "octet_trace", "octet_bench",
+                  "graph_cond")
 
 
 def _check(cond, msg):
@@ -225,6 +241,67 @@ def compare_walks(prep, boxes, sets):
                 row["bound_by"] = work["bound_by"]
                 row["tests"] += work["tests"]
     return rows
+
+
+def compare_lists(smi, sa, static, cfg):
+    """Phase 17: the block-list kernel against its twin at the main path's
+    shapes, timed beside the twin and its bound.  Returns the kernel
+    table's row (without launches)."""
+    import torch
+    from rustray_tpu_torch import EngineConfig
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops.cluster_trace import world_cluster_aabbs
+    from rustray_tpu_torch.ops.traverse import coherence_sort, instance_mask
+    from rustray_tpu_torch.tools.capture_waves import capture
+    from rustray_tpu_torch.tools.walk_compare import list_work
+    start = time.perf_counter()
+    eng = EngineConfig()
+    cfg.samples = 1
+    waves = capture(sa, static, cfg, eng, chunk=eng.chunk_pixels,
+                    start_chunk=WIDTH * HEIGHT // 2 // eng.chunk_pixels)
+    w_lo, w_hi = world_cluster_aabbs(sa)
+    row = _row()
+    for name, for_shadow in (("closest_1", False), ("shadow_1", True),
+                             ("shadow_3", True)):
+        o, d, alive, t_max = (torch.as_tensor(waves[f"{name}_{k}"],
+                                              device="cuda")
+                              for k in ("o", "d", "alive", "tmax"))
+        inst_ok = instance_mask(sa, for_shadow, False)
+        cl_ok = sa.cl_valid & inst_ok[sa.cl_inst.long()]
+        _, o, d, alive, t_max = coherence_sort(o, d, alive, t_max, w_lo,
+                                               w_hi, cl_ok)
+        o, d, alive, t_max, nb = bt.pad_rays(o, d, alive, t_max, BLOCK)
+        args = (o, d, alive, t_max, w_lo, w_hi, cl_ok, nb, BLOCK)
+        key, cid, count = bt._list_keys_cuda(*args)
+        key_t, cid_t, count_t = bt._list_keys_twin(*args)
+        cpad = -(-w_lo.shape[0] // 128) * 128
+        lists = bt._block_lists(*args, cpad)
+        lists_t = bt._block_lists(*args, cpad, interpret=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(key.view(torch.int32), key_t.view(torch.int32))
+                and torch.equal(cid, cid_t) and torch.equal(count, count_t)
+                and all(torch.equal(a, b) for a, b in zip(lists, lists_t)))
+        _check(same, f"phase 17: {name}: the list kernel differs from its "
+               "twin")
+        ms = _cuda_ms(lambda: bt._list_keys_cuda(*args), 20)
+        plain = _cuda_ms(lambda: bt._list_keys_twin(*args), 2)
+        sort_ms = _cuda_ms(lambda: bt._block_lists(*args, cpad), 5) - ms
+        work = list_work(o, d, alive, cl_ok, nb, BLOCK)
+        print(f"phase 17: {name:9s} NB {nb} x C {w_lo.shape[0]}: key, cid, "
+              f"count and the sorted lists equal to the twin's; live "
+              f"sub-blocks {work['live_subblocks']} of {4 * nb}, listed "
+              f"pairs {int(count.sum())} of {work['pairs']}; kernel "
+              f"{ms:.4f} ms, twin {plain:.3f} ms, sort, gather and pad "
+              f"{sort_ms:.4f} ms; bound FP32 {work['fp32_ms']:.4f} ms, bytes "
+              f"{work['bytes_ms']:.4f} ms; kernel at "
+              f"{work['bound_ms'] / ms:.2%} of its bound")
+        row["ms"] += ms
+        row["plain_ms"] += plain
+        row["bound_ms"] += work["bound_ms"]
+        row["bound_by"] = work["bound_by"]
+        row["tests"] += work["pairs"]
+    print(f"phase 17 in {time.perf_counter() - start:.1f} s ({smi})")
+    return row
 
 
 def check_argmin_ties():
@@ -335,6 +412,10 @@ def bench_frame(tag, sa, static, cfg, engine, samples, counters):
           f"{graph['capture_seconds']:.3f} s, {graph['replays']} replays")
     _check(out["dropped_rays"] == 0, f"{tag}: rays still dropped after "
            "auto-raise")
+    if "lists" in counts:
+        walks = {m: counts["K1"][m] + counts["K2"][m] for m in counts["K1"]}
+        _check(counts["lists"] == walks, f"{tag}: list kernel launches "
+               f"{counts['lists']} against the walks' {walks}")
     color = out["color"]
     _check(color.shape == (HEIGHT, WIDTH, 3) and np.isfinite(color).all(),
            f"{tag}: image not finite or of the wrong shape")
@@ -1425,6 +1506,7 @@ def main() -> int:
     samples = int(os.environ.get("SMOKE_SAMPLES", 2))
     walk = {"K1": (bt.launches, bt.reset_launches),
             "K2": (bt.ungated_launches, bt.reset_launches),
+            "lists": (bt.list_launches, bt.reset_launches),
             "set_if": (graphs.launches, graphs.reset_launches)}
 
     # ---- phase 4: the main path ----
@@ -1562,6 +1644,9 @@ def main() -> int:
     # ---- phase 16: replayed and eager frames under the profiler ----
     profiled_frames(smi[0])
 
+    # ---- phase 17: the block-list kernel at the main path's shapes ----
+    list_row = compare_lists(smi[0], sa, static, cfg)
+
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks, and torch has no
         # call that makes a conditional graph node: library_ms null
@@ -1584,7 +1669,9 @@ def main() -> int:
         + [entry(f"octet_bench[{v}]", "octet_bench.cu", TPU_K4,
                  k4_launches[v], k4_rows[v]) for v in okb.VARIANTS]
         + [entry("set_if", "graph_cond.cu", ", ".join(TPU_CONDS),
-                 c4["set_if"]["set_if"], cond_row)])
+                 c4["set_if"]["set_if"], cond_row),
+           entry("block_lists", "block_lists.cu", TPU_LISTS,
+                 sum(c4["lists"].values()), list_row)])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -311,7 +311,8 @@ def _counters():
     from .ops import block_trace as bt
     from .ops import octet_trace as ot
     return ([(d, k) for d in (bt.launches, bt.ungated_launches, bt.selected,
-                              ot.launches, ot.rounds) for k in d]
+                              bt.list_launches, ot.launches, ot.rounds)
+             for k in d]
             + [(bt.census[m], k) for m in bt.census
                for k in ("calls", "blocks")]
             + [(ot.fallback, "calls"), (launches, "set_if")])

@@ -7,7 +7,10 @@ Port of ``rustray_tpu/ops/block_trace.py``:
 2.  :func:`_block_lists` slab-tests each block's interval bounds (as four
     quads) against all cluster AABBs and emits a complete front-to-back
     visit list per block: descriptors (cluster id in bits 0-15, quad mask
-    in bits 16-19) with ascending entry distances.
+    in bits 16-19) with ascending entry distances.  The interval test is
+    ``csrc/block_lists.cu`` on CUDA tensors and :func:`_list_keys_twin`,
+    its plain torch version, on CPU tensors or under ``interpret=True``;
+    the row sort that orders each list is torch's.
 3.  The walk (``csrc/block_trace.cu`` on CUDA tensors; :func:`_walk_twin`,
     its plain torch version with the same contract, on CPU tensors or under
     ``interpret=True``) visits the list in groups of 8 and stops at the
@@ -65,6 +68,10 @@ _VMEM_PACK_BUDGET = 64 * 1024 * 1024
 # the kernel launch in _walk_cuda counts (the twin never does)
 launches = {"closest": 0, "any": 0}
 ungated_launches = {"closest": 0, "any": 0}
+# launches of the CUDA list kernel (csrc/block_lists.cu), per mode: one per
+# prepare_walk on CUDA tensors, so on the main path equal to launches +
+# ungated_launches; only the launch in _list_keys_cuda counts
+list_launches = {"closest": 0, "any": 0}
 # trace_tris_blocks calls per selected variant, twin or kernel alike
 selected = {"gated": 0, "ungated": 0}
 # the census of the walks, per mode: trace_tris_blocks calls, their blocks
@@ -82,6 +89,7 @@ def reset_launches() -> None:
     for m in _MODES:
         launches[m] = 0
         ungated_launches[m] = 0
+        list_launches[m] = 0
         census[m]["calls"] = census[m]["blocks"] = 0
         graphs.zero_count(census[m], "entries")
     selected["gated"] = selected["ungated"] = 0
@@ -144,15 +152,17 @@ def coherence_key(o, d, alive, lo, hi):
     return torch.where(alive, key, 0x7FFFFFFF)
 
 
-def _block_lists(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block, cpad,
-                 refine: int = 4):
-    """Complete conservative front-to-back cluster list per ray block.
+def _list_keys_twin(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block,
+                    refine: int = 4):
+    """The interval test of :func:`_block_lists` in plain torch: the twin
+    of ``csrc/block_lists.cu``.
 
     Interval arithmetic over each sub-block's (alive-masked) origin and
     direction bounds lower-bounds every live ray's slab entry distance;
     sub-block results are unioned and recorded as the descriptor's quad
-    mask.  Returns (order (NB, cpad) int32 descriptors, entry (NB, cpad)
-    f32 ascending, count (NB,) int32)."""
+    mask.  Returns (key (NB, C) f32: the least entry distance, INF where no
+    sub-block may enter; cid (NB, C) int32 descriptors in cluster order;
+    count (NB,) int32, the clusters some sub-block may enter)."""
     S = refine if block % refine == 0 else 1
     sub = block // S
     nbs = nb * S
@@ -216,9 +226,81 @@ def _block_lists(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block, cpad,
     if S != 4:
         qbits = torch.where(possible, 15, 0).to(torch.int32)
     cid = torch.arange(C, dtype=torch.int32, device=dev)[None] | (qbits << 16)
+    return key, cid, possible.sum(dim=1).to(torch.int32)
+
+
+def _check_args(what, dev, *specs):
+    """Raise unless each (name, x, dtype, shape) is contiguous on dev."""
+    for name, x, dtype, shape in specs:
+        if x.device != dev or x.dtype != dtype \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                             f"tensor of shape {shape} on {dev}; got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _list_keys_cuda(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block,
+                    refine: int = 4, mode: str = "closest"):
+    """Launch the list kernel (csrc/block_lists.cu) on the current stream:
+    :func:`_list_keys_twin`'s contract for four sub-blocks, with one launch
+    counted in ``list_launches[mode]``.  Raises on what the kernel does not
+    take (another sub-block count, a block over 1024 rays, inputs of
+    another device, type, shape or layout) before any CUDA call."""
+    if refine != 4 or block % 4:
+        raise ValueError(f"block lists: the kernel takes 4 sub-blocks per "
+                         f"block (refine=4, block_n a multiple of 4); got "
+                         f"refine={refine}, block_n={block}")
+    if block > 1024:
+        raise ValueError(f"block lists: block_n must be at most 1024; got "
+                         f"{block}")
+    n, C, dev = nb * block, w_lo.shape[0], o.device
+    _check_args("block lists", dev, ("o", o, torch.float32, (n, 3)),
+                ("d", d, torch.float32, (n, 3)),
+                ("alive", alive, torch.bool, (n,)),
+                ("tmax", tmax, torch.float32, (n,)),
+                ("w_lo", w_lo, torch.float32, (C, 3)),
+                ("w_hi", w_hi, torch.float32, (C, 3)),
+                ("cl_ok", cl_ok, torch.bool, (C,)))
+    from ..build import load_kernel_lib
+    fn = load_kernel_lib("block_lists").rr_block_lists
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    key = torch.empty((nb, C), dtype=torch.float32, device=dev)
+    cid = torch.empty((nb, C), dtype=torch.int32, device=dev)
+    count = torch.empty((nb,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(o.data_ptr(), d.data_ptr(), alive.data_ptr(),
+                 tmax.data_ptr(), w_lo.data_ptr(), w_hi.data_ptr(),
+                 cl_ok.data_ptr(), key.data_ptr(), cid.data_ptr(),
+                 count.data_ptr(), nb, block, C,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block lists kernel launch failed: CUDA error "
+                           f"{err}")
+    list_launches[mode] += 1
+    return key, cid, count
+
+
+def _block_lists(o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block, cpad,
+                 refine: int = 4, interpret: bool = False,
+                 mode: str = "closest"):
+    """Complete conservative front-to-back cluster list per ray block: the
+    interval test (the CUDA kernel for CUDA tensors, counted under
+    ``mode``; :func:`_list_keys_twin` for CPU tensors or ``interpret=True``)
+    and a stable sort of each block's keys.  Returns (order (NB, cpad)
+    int32 descriptors, entry (NB, cpad) f32 ascending, count (NB,)
+    int32)."""
+    args = (o, d, alive, tmax, w_lo, w_hi, cl_ok, nb, block, refine)
+    if o.device.type == "cuda" and not interpret:
+        key, cid, count = _list_keys_cuda(*args, mode=mode)
+    elif o.device.type != "cpu" and not interpret:
+        raise ValueError(f"block lists: no kernel for device {o.device}")
+    else:
+        key, cid, count = _list_keys_twin(*args)
+    C = w_lo.shape[0]
     entry_s, perm = torch.sort(key, dim=1, stable=True)
     order = torch.gather(cid, 1, perm)
-    count = possible.sum(dim=1).to(torch.int32)
     if cpad > C:
         entry_s = torch.nn.functional.pad(entry_s, (0, cpad - C), value=INF)
         order = torch.nn.functional.pad(order, (0, cpad - C))
@@ -443,18 +525,12 @@ def _walk_cuda(count, rays, order, entry, pack, mode: str,
     if K != KERNEL_K:
         raise ValueError(f"block walk: the kernel is compiled for slabs of "
                          f"K={KERNEL_K} triangles; got K={K}")
-    for name, x, dtype, shape in (
-            ("count", count, torch.int32, (nb,)),
-            ("rays", rays, torch.float32, (nb, bn, 8)),
-            ("order", order, torch.int32, (nb, cpad)),
-            ("entry", entry, torch.float32, (nb, cpad)),
-            ("pack", pack, torch.float32, (n_rows, 16, K))):
-        if x.device != rays.device or x.dtype != dtype \
-                or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"block walk: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on "
-                             f"{rays.device}; got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+    _check_args("block walk", rays.device,
+                ("count", count, torch.int32, (nb,)),
+                ("rays", rays, torch.float32, (nb, bn, 8)),
+                ("order", order, torch.int32, (nb, cpad)),
+                ("entry", entry, torch.float32, (nb, cpad)),
+                ("pack", pack, torch.float32, (n_rows, 16, K)))
     if bn % 4 or bn > 1024:
         raise ValueError("block walk: block_n must be a multiple of 4 and "
                          "at most 1024 (one thread per ray)")
@@ -503,16 +579,9 @@ def block_walk(count, rays, order, entry, pack, mode: str = "closest",
     return _walk_twin(*args)
 
 
-def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):
-    """Dead-ray masking, padding and visit lists for :func:`block_walk`.
-    Returns (count, rays (NB, BN, 8), order, entry)."""
-    C = w_lo.shape[0]
-    if C > 65536:
-        raise ValueError("cluster pool exceeds the 16-bit descriptor "
-                         "packing (>8.4M triangles); split the pool")
-    if block_n % 4:
-        raise ValueError("block_n must be a multiple of 4 (quad gating)")
-    cpad = -(-C // 128) * 128
+def pad_rays(o, d, alive, t_max, block_n: int):
+    """Dead-ray masking and padding to whole blocks of ``block_n``: what
+    the list test and the walk read.  Returns (o, d, alive, t_max, nb)."""
     n = o.shape[0]
     nb = -(-n // block_n)
     pad = nb * block_n - n
@@ -532,8 +601,25 @@ def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int):
         t_max = torch.cat([t_max, torch.full((pad,), -1.0, device=dev)])
         alive = torch.cat([alive, torch.zeros((pad,), dtype=torch.bool,
                                               device=dev)])
+    return o, d, alive, t_max, nb
+
+
+def prepare_walk(o, d, alive, t_max, w_lo, w_hi, cl_ok, block_n: int,
+                 mode: str = "closest", interpret: bool = False):
+    """Dead-ray masking, padding and visit lists for :func:`block_walk`
+    (the list kernel's launch counted under ``mode``; ``interpret`` runs
+    the twin).  Returns (count, rays (NB, BN, 8), order, entry)."""
+    C = w_lo.shape[0]
+    if C > 65536:
+        raise ValueError("cluster pool exceeds the 16-bit descriptor "
+                         "packing (>8.4M triangles); split the pool")
+    if block_n % 4:
+        raise ValueError("block_n must be a multiple of 4 (quad gating)")
+    cpad = -(-C // 128) * 128
+    o, d, alive, t_max, nb = pad_rays(o, d, alive, t_max, block_n)
     order, entry, count = _block_lists(o, d, alive, t_max, w_lo, w_hi,
-                                       cl_ok, nb, block_n, cpad)
+                                       cl_ok, nb, block_n, cpad,
+                                       interpret=interpret, mode=mode)
     rays = torch.cat([o, d, t_max[:, None], torch.zeros_like(t_max)[:, None]],
                      dim=1).reshape(nb, block_n, 8).contiguous()
     return count, rays, order, entry
@@ -571,7 +657,7 @@ def trace_tris_blocks(o, d, alive, t_max, prep: TrianglePrep, w_lo, w_hi,
     pack = prep.pallas_pack.detach()
     n = o.shape[0]
     count, rays, order, entry = prepare_walk(o, d, alive, t_max, w_lo, w_hi,
-                                             cl_ok, block_n)
+                                             cl_ok, block_n, mode, interpret)
     _count_walk(count, mode)
     gated = pack_is_gated(pack)
     selected["gated" if gated else "ungated"] += 1

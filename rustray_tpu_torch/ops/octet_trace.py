@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 from .. import graphs
-from .block_trace import KERNEL_K, slab_test
+from .block_trace import KERNEL_K, _check_args, slab_test
 from .intersect import INF
 
 _BIG = 3.0e37
@@ -224,16 +224,6 @@ def _round1_twin(o, d, t_max, e, c0, t, idx, pack, mode: str):
     better = t1 < t
     return (torch.where(better, t1, t), torch.where(better, i1, idx),
             remaining > _R1_SLOTS, slots, remaining.to(torch.int32))
-
-
-def _check_args(what, dev, *specs):
-    """Raise unless each (name, x, dtype, shape) is contiguous on dev."""
-    for name, x, dtype, shape in specs:
-        if x.device != dev or x.dtype != dtype \
-                or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {shape} on {dev}; got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _pack_spec(what, pack):

@@ -5,7 +5,9 @@ The inputs are those of ``chip_smoke.py`` phase 3: the primary rays of the
 1280x720 bench frame's middle chunk (32,768 rays) and their level-1 shadow
 rays, coherence-sorted, in blocks of 128.  :func:`walk_work` counts what
 the serial walk needs on them (entries visited, listed quads, ray x
-triangle tests, bytes) and the least time the card could take for it.
+triangle tests, bytes) and the least time the card could take for it;
+:func:`list_work` counts the same for the list test that builds the visit
+lists.
 
 Usage (repository root, one CUDA card):
 
@@ -136,6 +138,40 @@ def walk_work(lists, visited, K: int, gated: bool):
                 quads_per_entry=n_quads / max(entries, 1), tests=tests,
                 clusters=clusters, bytes=nbytes,
                 fp32_ms=tests * FLOPS_PER_TEST / FP32_FLOPS * 1e3,
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_ms=ms,
+                bound_by=by)
+
+
+# FP32 operations of the list test per live sub-block and ok cluster: 26
+# per usable axis (4 differences, 8 products, 12 min/max, near and far) and
+# 8 to fold the axes, clamp, compare and fold the sub-block
+LIST_FLOPS_PER_AXIS = 26
+LIST_FLOPS_PER_SUB = 8
+
+
+def list_work(o, d, alive, cl_ok, nb: int, block: int):
+    """What the list test (``block_trace._list_keys_twin``, four sub-blocks)
+    needs on padded, dead-masked rays: the operations of the live
+    sub-blocks' usable axes against the ok clusters, the bytes of reading
+    the rays and boxes once and writing key, cid and count, and the
+    bound."""
+    from ..ops.block_trace import _BIG
+    S, C = 4, cl_ok.shape[0]
+    a = alive.reshape(nb, S, block // S, 1)
+    d_b = d.reshape(nb, S, block // S, 3)
+    dlo = torch.where(a, d_b, _BIG).amin(dim=2)
+    dhi = torch.where(a, d_b, -_BIG).amax(dim=2)
+    axes = ((dlo > 1e-12) | (dhi < -1e-12)).sum(dim=2)     # (nb, S)
+    live = a[..., 0].any(dim=2)
+    per_cluster = int(((LIST_FLOPS_PER_AXIS * axes + LIST_FLOPS_PER_SUB)
+                       * live).sum())
+    flops = per_cluster * int(cl_ok.sum())
+    nbytes = (nb * block * (12 + 12 + 1 + 4) + C * (24 + 1)
+              + nb * C * 8 + nb * 4)
+    ms, by = bound(flops, nbytes)
+    return dict(blocks=nb, live_subblocks=int(live.sum()), pairs=nb * C,
+                flops=flops, bytes=nbytes,
+                fp32_ms=flops / FP32_FLOPS * 1e3,
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_ms=ms,
                 bound_by=by)
 

@@ -413,3 +413,77 @@ def test_census_counts_under_a_capture(accel):
         counts.append(_census())
     assert counts[0] == counts[1]
     assert counts[0]["closest"][0] == 2 and counts[0]["closest"][2] > 0
+
+
+def test_block_lists_run_the_twin_on_cpu(accel, monkeypatch):
+    """On CPU tensors, and under ``interpret=True``, the lists come from
+    the torch twin: the CUDA wrapper is never called and no list launch is
+    counted."""
+    calls = []
+    twin = bt._list_keys_twin
+
+    def counted_twin(*args):
+        calls.append(args[7])
+        return twin(*args)
+
+    def no_kernel(*args, **kw):
+        raise AssertionError("the CUDA list kernel was called")
+
+    monkeypatch.setattr(bt, "_list_keys_twin", counted_twin)
+    monkeypatch.setattr(bt, "_list_keys_cuda", no_kernel)
+    bt.reset_launches()
+    _, o, d, alive = _batches(accel["sa"], 512)[1]
+    args = (*accel["boxes_t"], _t(accel["cl_ok"]), 128)
+    for interpret in (False, True):
+        count, _, order, entry = bt.prepare_walk(
+            _t(o), _t(d), _t(alive), None, *args, mode="any",
+            interpret=interpret)
+        assert count.shape == (4,) and int(count.sum()) > 0
+    for mode in ("closest", "any"):
+        _trace(accel, o, d, alive, mode=mode)
+    assert calls == [4, 4, 2, 2]
+    assert bt.list_launches == {"closest": 0, "any": 0}
+
+
+def _list_args(n=512, block=128, dtype=torch.float32, C=8):
+    """CPU inputs of the list kernel's wrapper: n rays, C boxes."""
+    return (torch.zeros((n, 3), dtype=dtype), torch.ones((n, 3)),
+            torch.ones((n,), dtype=torch.bool), torch.ones((n,)),
+            torch.zeros((C, 3)), torch.ones((C, 3)),
+            torch.ones((C,), dtype=torch.bool), n // block, block)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("refine2", "4 sub-blocks"), ("block130", "4 sub-blocks"),
+    ("block2048", "at most 1024"), ("f64", "o must be"),
+    ("strided", "w_lo must be"), ("cl_ok_u8", "cl_ok must be")])
+def test_list_kernel_refuses_what_it_does_not_take(case, match):
+    """The CUDA wrapper raises on a call the kernel does not take (another
+    sub-block count, a block over 1024 rays, another type or a strided
+    tensor) before it builds or launches anything, so the checks run
+    without a card; the twin takes every one of the sub-block counts."""
+    kw = {}
+    if case == "refine2":
+        args = _list_args()
+        kw["refine"] = 2
+    elif case == "block130":
+        args = _list_args(n=520, block=130)
+    elif case == "block2048":
+        args = _list_args(n=2048, block=2048)
+    elif case == "f64":
+        args = _list_args(dtype=torch.float64)
+    elif case == "strided":
+        args = list(_list_args())
+        args[4] = torch.zeros((3, 8)).t()
+        args = tuple(args)
+    else:
+        args = list(_list_args())
+        args[6] = torch.ones((8,), dtype=torch.uint8)
+        args = tuple(args)
+    bt.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        bt._list_keys_cuda(*args, **kw)
+    assert bt.list_launches == {"closest": 0, "any": 0}
+    if case in ("refine2", "block130"):
+        key, cid, count = bt._list_keys_twin(*args, **kw)
+        assert ((cid >> 16) == 15).all() and (count == 8).all()
