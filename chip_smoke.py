@@ -123,7 +123,13 @@ Phases (each prints its result; any failure raises and exits non-zero):
      the inputs need at 67 TFLOP/s, or the bytes at 3.35 TB/s).  Every
      frame of phases 4, 6, 7, 12 and 14 checks that it launched once per
      walk (list_launches equal to K1's and K2's launches, eager and
-     replayed).
+     replayed);
+ 18. the gradient at the main path's size: render_loss_and_grad of the
+     1280x720 bench frame at 4 spp through K1, in chunks of 131,072
+     pixels per call (the sponza_inverse configuration's), timed with
+     its peak memory and its forward and backward device milliseconds
+     (shard.grad_stats); its image equal to render()'s for the same
+     engine and seed, and no ray dropped.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -786,6 +792,69 @@ def gradients(smi, small, tiny):
     print(f"phase 11: the 2-rank dryrun took {ranks_secs:.1f} s, beside "
           f"(c); phase 11 "
           f"{time.perf_counter() - start:.1f} s in all ({smi})")
+
+
+def chunked_gradient(smi, sa, static, cfg, chunk=131072):
+    """Phase 18: the chunked gradient of the 1280x720 bench frame at 4 spp
+    through K1, against render() of the same engine and seed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig, render
+    from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.parallel import shard
+    from rustray_tpu_torch.render import wavefront
+
+    start = time.perf_counter()
+    cfg4 = dataclasses.replace(cfg, samples=4)
+    engine = EngineConfig(seed=17, chunk_pixels=chunk)
+    params = shard.extract_diff_params(sa)
+    params["materials"]["base_color"] = params["materials"]["base_color"] * 0.5
+    target = render(shard.apply_diff_params(sa, params), static, cfg4,
+                    engine)["color"]
+    out = render(sa, static, cfg4, engine)
+    # the frames' graphs keep their pools: free them before the gradient
+    wavefront._RENDERER_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bt.reset_launches()
+    shard.reset_dropped()
+    shard.reset_grad_stats()
+    t0 = time.perf_counter()
+    loss, grads, color = shard.render_loss_and_grad(
+        sa, static, cfg4, target, engine, return_color=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = dict(shard.grad_stats)
+    color = color.cpu().numpy().reshape(out["color"].shape)
+    diff = float(np.abs(color - out["color"]).max())
+    image = np.trunc(color * 255.0).astype(np.uint8)
+    n_pix = static.width * static.height
+    _check(st["chunks"] == -(-n_pix // chunk) and st["calls"] == 1,
+           f"phase 18: the gradient took {st} for {n_pix} pixels")
+    _check(all(n > 0 for n in bt.launches.values()),
+           f"phase 18: a K1 mode never launched: {dict(bt.launches)}")
+    _check(shard.dropped["rays"] == 0 and out["dropped_rays"] == 0,
+           f"phase 18: dropped rays: gradient {shard.dropped['rays']}, "
+           f"render() {out['dropped_rays']}")
+    _check(np.array_equal(image, out["image"]) and diff <= 1e-6,
+           f"phase 18: the gradient's image differs from render()'s: max "
+           f"colour difference {diff}")
+    g = {f"{grp}.{k}": float(v.abs().max()) for grp, d in grads.items()
+         for k, v in d.items()}
+    _check(all(np.isfinite(v) for v in g.values()) and g[
+        "materials.base_color"] > 0, f"phase 18: gradients {g}")
+    print(f"phase 18: render_loss_and_grad {static.width}x{static.height} "
+          f"4 spp, chunk {chunk} ({st['chunks']} chunks, {st['cells']} "
+          f"chunk-cells): loss {float(loss):.9g} in {secs:.3f} s, peak "
+          f"memory {peak} B ({peak / 2**30:.2f} GiB), forward "
+          f"{st['forward_ms']:.1f} ms, backward {st['backward_ms']:.1f} ms "
+          f"of device time; K1 launches {dict(bt.launches)}; image equal to "
+          f"render()'s (max colour difference {diff}); 0 dropped ({smi})")
+    print(f"phase 18 in {time.perf_counter() - start:.1f} s")
+    return dict(secs=secs, peak=peak, **st)
 
 
 def _engines(small):
@@ -1646,6 +1715,9 @@ def main() -> int:
 
     # ---- phase 17: the block-list kernel at the main path's shapes ----
     list_row = compare_lists(smi[0], sa, static, cfg)
+
+    # ---- phase 18: the gradient at the main path's size, in chunks ----
+    chunked_gradient(smi[0], sa, static, cfg)
 
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of these walks, and torch has no

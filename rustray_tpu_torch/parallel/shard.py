@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import rng
+from .. import rng, spans
 from ..config import EngineConfig, RaytracingConfig
 from ..render.wavefront import (build_chunk_fn, finish_frame, frame_levels,
                                 max_queue_factor, prepare_frame)
@@ -39,6 +39,12 @@ from ..utils.mathutil import sample_pattern
 # rays dropped past the queue cap inside render_loss_and_grad, summed over
 # the world (it has no auto-raise, as in the JAX package)
 dropped = {"rays": 0}
+
+# render_loss_and_grad's counters since reset_grad_stats(): calls, chunks,
+# (chunk, sample cell) renders, and on CUDA the device milliseconds of the
+# chunks' forward passes (render and loss) and backward passes
+grad_stats = {"calls": 0, "chunks": 0, "cells": 0, "forward_ms": 0.0,
+              "backward_ms": 0.0}
 
 
 def reset_dropped() -> None:
@@ -270,59 +276,129 @@ def apply_diff_params(sa, params: Dict):
     )
 
 
+def reset_grad_stats() -> None:
+    grad_stats.update(calls=0, chunks=0, cells=0, forward_ms=0.0,
+                      backward_ms=0.0)
+
+
 def render_loss_and_grad(sa, static, cfg: RaytracingConfig, target,
-                         engine: EngineConfig = None, mesh: Mesh = None):
+                         engine: EngineConfig = None, mesh: Mesh = None,
+                         pixel_weight=None, return_color: bool = False):
     """loss = MSE(render, target) over the frame and its gradients with
     respect to :func:`extract_diff_params`, over the mesh.
 
-    Each rank renders its ray shard's pixels as one chunk (key
-    ``PRNGKey(seed)``, no chunk start folded in, as in the JAX package)
-    over its sample cells.  With ``c_r`` the rank's summed color, the
-    loss is taken from ``C = Σ_samples c_r`` and the backward runs on
-    ``Σ g·c_r``, ``g = ∂loss/∂C``; the gradients are summed over the
-    world and the loss over "rays".  Returns (loss 0-dim tensor, grads
-    with the structure of the parameters; a leaf that no gradient
-    reaches, e.g. ``lights.max_angle``, is zeros).  Live rays past the
-    queue cap are dropped without a re-render and counted in
-    :data:`dropped`."""
-    engine = engine or EngineConfig()
-    mesh = mesh or make_mesh()
+    Each rank renders its ray shard's pixels over its sample cells.  When
+    they fit in ``engine.chunk_pixels`` they are one chunk with key
+    ``PRNGKey(seed)``, no chunk start folded in, as in the JAX package.
+    A larger frame renders in chunks of ``chunk_pixels`` per ray shard, as
+    :func:`render_sharded` does, each with key ``fold_in(PRNGKey(seed),
+    start)``, so that its image is ``render()``'s for the same engine;
+    the JAX package has no such path and keeps its one-chunk key.  Every
+    sample cell of a pixel lies in the pixel's chunk, so a chunk takes the
+    loss of its own pixels, runs its backward and frees its graph before
+    the next chunk: the peak memory follows the chunk, not the frame.
+    With ``c_r`` a chunk's summed color on this rank, the loss is taken
+    from ``C = Σ_samples c_r`` and the backward runs on ``Σ g·c_r``, ``g =
+    ∂loss/∂C``; the gradients are summed over the chunks, then over the
+    world, and the loss over "rays".
+
+    ``pixel_weight`` (H·W or (H, W); None: all ones) weights each pixel's
+    squared error.  Returns (loss 0-dim tensor, grads with the structure
+    of the parameters; a leaf that no gradient reaches, e.g.
+    ``lights.max_angle``, is zeros), and with ``return_color`` also the
+    rendered mean colour (H·W, 3), clamped at 1 as ``render()``'s, the
+    whole frame on every rank.  Live rays past the queue cap are dropped
+    without a re-render and counted in :data:`dropped`.
+
+    The call is the ``grad`` span; per chunk ``grad.forward`` (the render
+    under autograd and the loss) and ``grad.backward``, then
+    ``grad.reduce``.  :data:`grad_stats` counts the calls, chunks and
+    (chunk, cell) renders, and on CUDA the forward and backward device
+    milliseconds, read from events after the call's final sync."""
+    with spans.span("grad"):
+        return _loss_and_grad(sa, static, cfg, target,
+                              engine or EngineConfig(), mesh or make_mesh(),
+                              pixel_weight, return_color)
+
+
+def _loss_and_grad(sa, static, cfg, target, engine, mesh, pixel_weight,
+                   return_color):
     dev = sa.verts.device
     n_pix = static.width * static.height
     inv_s = 1.0 / cfg.samples
-
-    px, py, valid, _ = _rank_pixels(static, mesh, dev)
+    one_chunk = -(-n_pix // mesh.shape["rays"]) <= engine.chunk_pixels
+    span = n_pix if one_chunk else engine.chunk_pixels * mesh.shape["rays"]
+    key = rng.PRNGKey(engine.seed)
     cells, cell_idx, cell_valid = _rank_cells(cfg, engine, mesh)
-    tgt = np.asarray(target, np.float32).reshape(-1, 3)
-    n_padded = px.shape[0] * mesh.shape["rays"]
-    if tgt.shape[0] < n_padded:
-        tgt = np.concatenate([tgt, np.zeros((n_padded - tgt.shape[0], 3),
-                                            np.float32)])
-    tgt = torch.as_tensor(_shard(tgt, mesh.ray, mesh.shape["rays"]),
-                          device=dev)
+    # one zero row past the frame for the padded pixels
+    tgt = np.concatenate([np.asarray(target, np.float32).reshape(-1, 3),
+                          np.zeros((1, 3), np.float32)])
+    wgt = None if pixel_weight is None else np.concatenate(
+        [np.asarray(pixel_weight, np.float32).reshape(-1),
+         np.zeros((1,), np.float32)])
 
     params = {grp: {k: v.detach().clone().requires_grad_(True)
                     for k, v in leaves.items()}
               for grp, leaves in extract_diff_params(sa).items()}
+    flat = [leaf for leaves in params.values() for leaf in leaves.values()]
     sa2 = apply_diff_params(sa, params)
     prep, boxes = prepare_frame(sa2, static, engine)
     chunk_fn = build_chunk_fn(static, cfg, engine, frame_levels(sa, cfg))
-    c, _, _, _, n_drop, _ = chunk_fn(sa2, prep, boxes, px, py, valid, cells,
-                                     cell_idx, cell_valid,
-                                     rng.PRNGKey(engine.seed))
+    timed = dev.type == "cuda"
+    events = []
+    loss = grads = None
+    n_drop = torch.zeros((), dtype=torch.int64, device=dev)
+    frame = torch.zeros((n_pix, 3), device=dev) if return_color else None
+    starts = range(0, n_pix, span)
+    for start in starts:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+            if timed else []
+        with spans.span("grad.forward"):
+            if ev:
+                ev[0].record()
+            px, py, valid, pix = _rank_pixels(static, mesh, dev, start, span)
+            at = np.minimum(pix, n_pix)
+            c, _, _, _, drops, _ = chunk_fn(
+                sa2, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
+                key if one_chunk else rng.fold_in(key, start))
+            n_drop = n_drop + drops
+            color = _sum(c.detach().clone(), mesh,
+                         "samples").requires_grad_(True)
+            err = (color * inv_s - torch.as_tensor(tgt[at], device=dev)) ** 2
+            if wgt is not None:
+                err = err * torch.as_tensor(wgt[at], device=dev)[:, None]
+            # normalized here so loss AND grads share the same scale
+            part = torch.sum(torch.where(valid[:, None], err, 0.0)) \
+                / (n_pix * 3)
+            if frame is not None:
+                sel = valid.cpu().numpy()
+                frame[torch.as_tensor(pix[sel], device=dev)] = \
+                    color.detach()[valid]
+        with spans.span("grad.backward"):
+            if ev:
+                ev[1].record()
+            (g,) = torch.autograd.grad(part, color)
+            # the frame's prep is every chunk's: keep its graph until the
+            # last chunk
+            got = (torch.autograd.grad(c, flat, grad_outputs=g,
+                                       allow_unused=True,
+                                       retain_graph=start != starts[-1])
+                   if c.requires_grad else [None] * len(flat))
+            got = torch.cat([(torch.zeros_like(p) if q is None else q)
+                             .reshape(-1) for p, q in zip(flat, got)])
+            del c, g, color, err
+            if ev:
+                ev[2].record()
+        loss = part.detach() if loss is None else loss + part.detach()
+        grads = got if grads is None else grads + got
+        events.append(ev)
 
-    color = _sum(c.detach().clone(), mesh, "samples").requires_grad_(True)
-    err = (color * inv_s - tgt) ** 2
-    # normalized here so loss AND grads share the same scale
-    loss = torch.sum(torch.where(valid[:, None], err, 0.0)) / (n_pix * 3)
-    (g,) = torch.autograd.grad(loss, color)
-
-    flat = [leaf for leaves in params.values() for leaf in leaves.values()]
-    got = (torch.autograd.grad(c, flat, grad_outputs=g, allow_unused=True)
-           if c.requires_grad else [None] * len(flat))
-    grads = torch.cat([(torch.zeros_like(p) if q is None else q).reshape(-1)
-                       for p, q in zip(flat, got)])
-    grads = _sum(grads, mesh, "world")
+    with spans.span("grad.reduce"):
+        grads = _sum(grads, mesh, "world")
+        loss = _sum(loss, mesh, "rays")
+        n_drop = int(_sum(n_drop, mesh, "world"))
+        if frame is not None:
+            frame = torch.clamp(_sum(frame, mesh, "rays") * inv_s, max=1.0)
     out, off = {}, 0
     for grp, leaves in params.items():
         out[grp] = {}
@@ -330,7 +406,15 @@ def render_loss_and_grad(sa, static, cfg: RaytracingConfig, target,
             out[grp][k] = grads[off:off + p.numel()].reshape(p.shape)
             off += p.numel()
 
-    loss = _sum(loss.detach(), mesh, "rays")
-    n_drop = int(_sum(n_drop, mesh, "world"))
     dropped["rays"] += n_drop
+    grad_stats["calls"] += 1
+    grad_stats["chunks"] += len(starts)
+    grad_stats["cells"] += len(starts) * int(np.sum(cell_valid))
+    # the events completed before the drop count reached the host
+    for ev in events:
+        if ev:
+            grad_stats["forward_ms"] += ev[0].elapsed_time(ev[1])
+            grad_stats["backward_ms"] += ev[1].elapsed_time(ev[2])
+    if return_color:
+        return loss, out, frame
     return loss, out

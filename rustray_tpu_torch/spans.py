@@ -18,7 +18,11 @@ layer (each nested in the one before it where the code nests):
 - frame path: ``render``, ``render.prepare``, ``render.bind``,
   ``render.fingerprint``, ``render.group``, ``render.fetch``,
   ``render.rerender``, ``render.finish``;
-- chunk program, CUDA graphs: ``chunk.dispatch``, ``chunk.capture``.
+- chunk program, CUDA graphs: ``chunk.dispatch``, ``chunk.capture``;
+- gradients (``parallel/shard.py::render_loss_and_grad``): ``grad``, per
+  chunk ``grad.forward`` (the render under autograd, with its
+  ``chunk.dispatch``, and the loss) and ``grad.backward``, then
+  ``grad.reduce`` (the sums over the world).
 """
 from __future__ import annotations
 
