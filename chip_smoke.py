@@ -10,8 +10,9 @@ Phases (each prints its result; any failure raises and exits non-zero):
      allocations to its graph's pool; TF32 off for matmuls and
      convolutions;
   2. build: nvcc builds every kernel from the checkout's sources, one
-     process per source, all at once (csrc/block_trace.cu, octet_trace.cu,
-     octet_bench.cu, graph_cond.cu), with their ptxas lines;
+     process per source, all at once (csrc/block_trace.cu, block_lists.cu,
+     octet_trace.cu, octet_bench.cu, graph_cond.cu, mat_rows.cu), with
+     their ptxas lines;
   3. kernels vs twins on the full bench scene (data/bench, 249,698
      triangles in 2,593 clusters), on the primary rays of one 32768-pixel
      chunk and their level-1 shadow rays, timed: the block walk gated (K1)
@@ -125,11 +126,20 @@ Phases (each prints its result; any failure raises and exits non-zero):
      walk (list_launches equal to K1's and K2's launches, eager and
      replayed);
  18. the gradient at the main path's size: render_loss_and_grad of the
-     1280x720 bench frame at 4 spp through K1, in chunks of 131,072
-     pixels per call (the sponza_inverse configuration's), timed with
-     its peak memory and its forward and backward device milliseconds
-     (shard.grad_stats); its image equal to render()'s for the same
-     engine and seed, and no ray dropped.
+     1280x720 bench frame at 4 spp through K1, in chunks of 524,288
+     pixels per call (the sponza_inverse configuration's), timed with its
+     peak memory, its forward and backward device milliseconds
+     (shard.grad_stats) and the launches of the material-row kernel; its
+     image equal to render()'s for the same engine and seed,
+     and no ray dropped;
+ 19. the material-row kernel (csrc/mat_rows.cu, the backward of
+     hit_attributes' per-ray gather of the (37, 16) material table) on
+     the main path's shapes: the cotangents and materials of a 1-spp
+     gradient at chunk 524,288, at level 1 (524,288 rays) and at a deep
+     level (the queue of 2,097,152): against a float64 index_add_ at
+     relative L2 1e-6 and bit for bit across two launches, timed beside
+     its byte bound (N * 68 + M * 64 bytes at 3.35 TB/s), its twin
+     (index_add_) and PyTorch's indexing backward of the same gather.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -170,8 +180,11 @@ TPU_CONDS = ("rustray_tpu/render/wavefront.py:383",
 # the JAX package's block-list prologue, which XLA fuses: no Pallas kernel
 TPU_LISTS = ("none: rustray_tpu/ops/block_trace.py::_block_lists is XLA, "
              "not Pallas")
+# the JAX package's material-row gather, whose transpose XLA derives
+TPU_MAT_ROWS = ("none: the backward of rustray_tpu/ops/traverse.py::"
+                "hit_attributes' material gather is XLA's transpose")
 KERNEL_SOURCES = ("block_trace", "block_lists", "octet_trace", "octet_bench",
-                  "graph_cond")
+                  "graph_cond", "mat_rows")
 
 
 def _check(cond, msg):
@@ -182,6 +195,29 @@ def _check(cond, msg):
 def _cuda_ms(fn, iters):
     from rustray_tpu_torch.tools.octet_kernel_bench import cuda_ms
     return cuda_ms(fn, iters)
+
+
+def _graph_ms(fn, inputs, iters):
+    """Device ms per call of ``fn``: one CUDA graph of ``iters`` calls, call
+    i on ``inputs[i % len(inputs)]``, replayed between two CUDA events, so
+    no host launch is in the time."""
+    import torch
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
 
 
 def _row():
@@ -794,7 +830,7 @@ def gradients(smi, small, tiny):
           f"{time.perf_counter() - start:.1f} s in all ({smi})")
 
 
-def chunked_gradient(smi, sa, static, cfg, chunk=131072):
+def chunked_gradient(smi, sa, static, cfg, chunk=524288):
     """Phase 18: the chunked gradient of the 1280x720 bench frame at 4 spp
     through K1, against render() of the same engine and seed."""
     import dataclasses
@@ -802,6 +838,7 @@ def chunked_gradient(smi, sa, static, cfg, chunk=131072):
     import torch
     from rustray_tpu_torch import EngineConfig, render
     from rustray_tpu_torch.ops import block_trace as bt
+    from rustray_tpu_torch.ops import traverse as trav
     from rustray_tpu_torch.parallel import shard
     from rustray_tpu_torch.render import wavefront
 
@@ -819,6 +856,7 @@ def chunked_gradient(smi, sa, static, cfg, chunk=131072):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bt.reset_launches()
+    trav.reset_mat_rows()
     shard.reset_dropped()
     shard.reset_grad_stats()
     t0 = time.perf_counter()
@@ -836,6 +874,9 @@ def chunked_gradient(smi, sa, static, cfg, chunk=131072):
            f"phase 18: the gradient took {st} for {n_pix} pixels")
     _check(all(n > 0 for n in bt.launches.values()),
            f"phase 18: a K1 mode never launched: {dict(bt.launches)}")
+    mat_rows = dict(trav.mat_rows)
+    _check(mat_rows["launches"] > 0, "phase 18: the material-row kernel "
+           "never launched")
     _check(shard.dropped["rays"] == 0 and out["dropped_rays"] == 0,
            f"phase 18: dropped rays: gradient {shard.dropped['rays']}, "
            f"render() {out['dropped_rays']}")
@@ -851,10 +892,97 @@ def chunked_gradient(smi, sa, static, cfg, chunk=131072):
           f"chunk-cells): loss {float(loss):.9g} in {secs:.3f} s, peak "
           f"memory {peak} B ({peak / 2**30:.2f} GiB), forward "
           f"{st['forward_ms']:.1f} ms, backward {st['backward_ms']:.1f} ms "
-          f"of device time; K1 launches {dict(bt.launches)}; image equal to "
-          f"render()'s (max colour difference {diff}); 0 dropped ({smi})")
+          f"of device time; K1 launches {dict(bt.launches)}; material-row "
+          f"kernel {mat_rows['launches']} launches over {mat_rows['rows']} "
+          f"rows; image equal to render()'s (max colour difference {diff}); "
+          f"0 dropped ({smi})")
     print(f"phase 18 in {time.perf_counter() - start:.1f} s")
-    return dict(secs=secs, peak=peak, **st)
+    return dict(secs=secs, peak=peak, mat_rows=mat_rows, **st)
+
+
+def mat_rows_phase(smi, sa, static, cfg, chunk=524288):
+    """Phase 19: the material-row kernel on the cotangents and materials
+    of a 1-spp gradient of the bench frame at ``chunk`` pixels, one input
+    per queue length (level 1's and the first deep level's in the
+    backward), against a float64 index_add_ and across two launches, timed
+    beside its byte bound, its twin and PyTorch's indexing backward.
+    Returns the kernel table's row (without launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig
+    from rustray_tpu_torch.ops import traverse as trav
+    from rustray_tpu_torch.parallel import shard
+    start = time.perf_counter()
+    seen = {}
+    launch = trav._mat_rows_cuda
+
+    def record(g, mat, n_mats):
+        if mat.shape[0] not in seen:
+            seen[mat.shape[0]] = (g.clone(), mat.clone(), n_mats)
+        return launch(g, mat, n_mats)
+
+    trav._mat_rows_cuda = record
+    try:
+        target = np.full((static.height, static.width, 3), 0.5, np.float32)
+        shard.render_loss_and_grad(
+            sa, static, dataclasses.replace(cfg, samples=1), target,
+            EngineConfig(seed=19, chunk_pixels=chunk))
+    finally:
+        trav._mat_rows_cuda = launch
+    _check(len(seen) >= 2, f"phase 19: queue lengths {sorted(seen)}")
+    row = _row()
+    row["library_ms"] = 0.0
+    for n in sorted(seen):
+        g, mat, n_mats = seen[n]
+        want = torch.zeros((n_mats, g.shape[1]), dtype=torch.float64,
+                           device=g.device).index_add_(0, mat, g.double())
+        first = trav._mat_rows_cuda(g, mat, n_mats)
+        second = trav._mat_rows_cuda(g, mat, n_mats)
+        twin = trav._mat_rows_twin(g, mat, n_mats)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.vector_norm(first.double() - want)
+                    / torch.linalg.vector_norm(want))
+        _check(torch.equal(first.view(torch.int32), second.view(torch.int32))
+               and rel <= 1e-6, f"phase 19: N {n}: two launches differ or "
+               f"the relative L2 to float64 is {rel:.3g}")
+        err = float((first - twin).abs().max())
+        # the kernels' time in a graph, each call on a copy of the input
+        # that left the 50 MB L2 cache, and the wall of a call by CUDA
+        # events, which at these sizes is the host's launch
+        copies = [(g.clone(), mat.clone(), n_mats) for _ in range(
+            max(2, -(-150_000_000 // (n * 68))))]
+        ms = _graph_ms(trav._mat_rows_cuda, copies, 20)
+        call_ms = _cuda_ms(lambda: trav._mat_rows_cuda(g, mat, n_mats), 20)
+        del copies
+        plain = _cuda_ms(lambda: trav._mat_rows_twin(g, mat, n_mats), 20)
+        table = torch.zeros((n_mats, g.shape[1]), device=g.device,
+                            requires_grad=True)
+        idx = mat.long()
+        library = _cuda_ms(lambda: torch.autograd.grad(table[idx], table, g),
+                           3)
+        bound = (n * (4 + 4 * g.shape[1]) + n_mats * 4 * g.shape[1]) \
+            / 3.35e12 * 1e3
+        m = mat.cpu().numpy()
+        runs = 1 + int(np.count_nonzero(m[1:] != m[:-1]))
+        print(f"phase 19: N {n} x M {n_mats}: {np.mean(m == 0):.1%} of the "
+              f"rows on material 0, {runs} runs of one material; relative "
+              f"L2 to float64 {rel:.3g}, two launches equal, max difference "
+              f"to the twin {err:.3g}; kernel {ms:.4f} ms in a graph on "
+              f"inputs out of L2 ({call_ms:.4f} ms a call by events), twin "
+              f"{plain:.4f} "
+              f"ms, PyTorch's indexing backward {library:.3f} ms; bound "
+              f"(bytes) {bound:.4f} ms; kernel at {bound / ms:.2%} of its "
+              f"bound")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += ms
+        row["plain_ms"] += plain
+        row["library_ms"] += library
+        row["bound_ms"] += bound
+        row["bound_by"] = "bytes"
+        row["tests"] += n
+    print(f"phase 19 in {time.perf_counter() - start:.1f} s ({smi})")
+    return row
 
 
 def _engines(small):
@@ -1717,18 +1845,22 @@ def main() -> int:
     list_row = compare_lists(smi[0], sa, static, cfg)
 
     # ---- phase 18: the gradient at the main path's size, in chunks ----
-    chunked_gradient(smi[0], sa, static, cfg)
+    grad18 = chunked_gradient(smi[0], sa, static, cfg)
+
+    # ---- phase 19: the material-row kernel at the main path's shapes ----
+    mat_row = mat_rows_phase(smi[0], sa, static, cfg)
 
     def entry(name, source, replaces, launches, row):
-        # no one PyTorch call computes any of these walks, and torch has no
-        # call that makes a conditional graph node: library_ms null
+        # no one PyTorch call computes any of the walks, and torch has no
+        # call that makes a conditional graph node: library_ms null but for
+        # the material rows (autograd's indexing backward)
         return dict(name=name, route="cuda",
                     source=f"rustray_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=None,
-                    tests=row["tests"])
+                    bound_by=row["bound_by"],
+                    library_ms=row.get("library_ms"), tests=row["tests"])
 
     kernels = (
         [entry(f"block_walk[{m}]", "block_trace.cu", TPU_K1, c4["K1"][m],
@@ -1743,7 +1875,9 @@ def main() -> int:
         + [entry("set_if", "graph_cond.cu", ", ".join(TPU_CONDS),
                  c4["set_if"]["set_if"], cond_row),
            entry("block_lists", "block_lists.cu", TPU_LISTS,
-                 sum(c4["lists"].values()), list_row)])
+                 sum(c4["lists"].values()), list_row),
+           entry("mat_rows", "mat_rows.cu", TPU_MAT_ROWS,
+                 grad18["mat_rows"]["launches"], mat_row)])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

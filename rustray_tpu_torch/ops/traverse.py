@@ -17,10 +17,13 @@ Shadow rays carry ``t_max`` = distance to the light; the block walk stops
 at a confirmed hit per lane in any-hit mode, the other walks and the dense
 scan return the nearest hit.  Per-winner data comes from the packed (T, 16)
 rows of ``build_shade_packs`` and per-material data from
-``build_mat_packs``.
+``build_mat_packs``; under autograd :func:`gather_mat_rows` takes each
+ray's material row, and its backward sums the rows per material
+(``csrc/mat_rows.cu`` on the card).
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -165,6 +168,96 @@ def selected_t(o, d, shade_pack, tri_idx, found, t_sel):
     its backward, so the hit distance's gradient reaches ``o``, ``d`` and
     the pack whichever walk selected the winner."""
     return _SelectedT.apply(o, d, shade_pack, tri_idx, found, t_sel)
+
+
+# the material-row reduction kernel (csrc/mat_rows.cu): its launches and the
+# rows they reduced; only the launch in _mat_rows_cuda counts
+mat_rows = {"launches": 0, "rows": 0}
+# its grid (the kernel's kTile, kWarps and the CTA cap): the order of its
+# sums, and so its bits, follow from the rows and materials alone
+_MAT_TILE, _MAT_WARPS, _MAT_MAX_CTAS = 64, 8, 512
+
+
+def reset_mat_rows() -> None:
+    """Zero :data:`mat_rows`."""
+    mat_rows["launches"] = mat_rows["rows"] = 0
+
+
+def _mat_rows_twin(g, mat, n_mats: int):
+    """The gather's backward in plain torch: the (n_mats, W) sums of the
+    rows of ``g`` (N, W) per material ``mat`` (N,)."""
+    return torch.zeros((n_mats, g.shape[1]), dtype=g.dtype,
+                       device=g.device).index_add_(0, mat, g)
+
+
+def _mat_rows_grid(n: int, n_mats: int):
+    """(CTAs per material tile, rays per warp) of the kernel for n rows."""
+    tiles = -(-n_mats // _MAT_TILE)
+    ctas = min(max(1, _MAT_MAX_CTAS // tiles),
+               max(1, -(-n // (_MAT_WARPS * 32 * 4))))
+    per_warp = -(-n // (ctas * _MAT_WARPS))
+    return ctas, max(32, -(-per_warp // 32) * 32)
+
+
+def _mat_rows_cuda(g, mat, n_mats: int):
+    """:func:`_mat_rows_twin` by the kernel (csrc/mat_rows.cu) on the
+    current stream, deterministic, counted in :data:`mat_rows`.  Raises on
+    what the kernel does not take before any CUDA call."""
+    n, dev = mat.shape[0], g.device
+    if (g.dtype != torch.float32 or g.shape != (n, MATF_W)
+            or not g.is_contiguous() or mat.dtype != torch.int32
+            or not mat.is_contiguous() or mat.device != dev
+            or dev.type != "cuda"):
+        raise ValueError(
+            f"material rows: g must be a contiguous float32 ({n}, {MATF_W}) "
+            f"and mat a contiguous int32 ({n},) tensor on one CUDA device; "
+            f"got {g.dtype} {tuple(g.shape)} on {g.device}, {mat.dtype} "
+            f"{tuple(mat.shape)} on {mat.device}")
+    from ..build import load_kernel_lib
+    fn = load_kernel_lib("mat_rows").rr_mat_rows
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ctas, per_warp = _mat_rows_grid(n, n_mats)
+    partial = torch.empty((ctas, n_mats, MATF_W), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((n_mats, MATF_W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(g.data_ptr(), mat.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), n, n_mats, ctas, per_warp,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"material rows kernel launch failed: CUDA error "
+                           f"{err}")
+    mat_rows["launches"] += 1
+    mat_rows["rows"] += n
+    return out
+
+
+class _MatRows(torch.autograd.Function):
+    """Forward: ``table[mat.long()]``, the plain gather.  Backward: the
+    rows' cotangents summed per material by the kernel on CUDA tensors
+    (:func:`_mat_rows_cuda`), by :func:`_mat_rows_twin` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, mat):
+        ctx.save_for_backward(mat)
+        ctx.n_mats = table.shape[0]
+        return table[mat.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        mat, = ctx.saved_tensors
+        reduce = _mat_rows_cuda if g.is_cuda else _mat_rows_twin
+        return reduce(g.contiguous(), mat, ctx.n_mats), None
+
+
+def gather_mat_rows(table, mat):
+    """Each ray's row of the (M, MATF_W) material table, ``table[mat]``,
+    whose backward sums the rows per material in one pass instead of
+    autograd's ``index_put_`` (a sort, then each material's rays one after
+    another).  ``mat`` (N,) int32."""
+    return _MatRows.apply(table, mat)
 
 
 def instance_mask(sa, for_shadow: bool, allow_reflection_only: bool):
@@ -375,7 +468,10 @@ def hit_attributes(sa, static, prep: TrianglePrep, o, d, hit: Hit) -> HitAttrs:
     inst_l = inst.long()
     mat = torch.where(hit.hit, sa.inst_mat[inst_l], 0)
     obj_id = torch.where(hit.hit, sa.inst_obj_id[inst_l], 0)
-    mat_f = prep.mat_pack_f[mat.long()]                 # (N, 16)
+    if torch.is_grad_enabled() and prep.mat_pack_f.requires_grad:
+        mat_f = gather_mat_rows(prep.mat_pack_f, mat)  # (N, 16)
+    else:
+        mat_f = prep.mat_pack_f[mat.long()]             # (N, 16)
     mat_i = prep.mat_pack_i[mat.long()]                 # (N, 32)
 
     if static.has_mesh:

@@ -305,6 +305,18 @@ def _dead_level(n: int, dev):
                                            device=dev)))
 
 
+def _expand(acc, kept, take, perm):
+    """The fold's children radiance at their places before the compaction:
+    ``acc[take]`` where ``kept``, else 0.  Under autograd (``perm``, the
+    kept children's places, is kept only in grad mode) the same values are
+    put at ``perm``: the gather's backward would sum every dropped child's
+    cotangent into row ``take`` = cap - 1, one after another."""
+    if perm is not None and acc.requires_grad:
+        return acc.new_zeros((kept.shape[0], acc.shape[1])).index_copy(
+            0, perm, acc)
+    return torch.where(kept[:, None], acc[take], 0.0)
+
+
 def render_sample(sa, static, prep, cfg: RaytracingConfig,
                   engine: EngineConfig, n_levels: int, boxes,
                   px, py, valid, cell, key):
@@ -350,7 +362,8 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
         own_id = torch.where(alive, aov["obj_id"], 0)
         override = alive & ch["alpha_zero"] & ch["refr_spawned"]
         levels.append(dict(contrib=contrib, own_id=own_id,
-                           override=override, child_inv=None))
+                           override=override, child_inv=None,
+                           child_perm=None))
         if depth == n_levels:
             break
 
@@ -365,7 +378,10 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
             sort_key = torch.where(alive_c, -weight.amax(dim=-1), 1.0)
             perm_full = torch.argsort(sort_key, stable=True)
             perm = perm_full[:cap]
-            o, d, weight = o[perm], d[perm], weight[perm]
+            # index_select, whose backward adds the unique rows back
+            # (index_add_) where x[perm]'s sorts them first (index_put_)
+            o, d, weight = (torch.index_select(x, 0, perm)
+                            for x in (o, d, weight))
             alive = alive_c[perm]
             dropped = dropped + (alive_c.sum() - alive.sum())
             # rank of each child in the compaction order (rank < cap:
@@ -373,6 +389,8 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
             inv = torch.empty_like(perm_full)
             inv[perm_full] = torch.arange(perm_full.shape[0], device=dev)
             levels[-1]["child_inv"] = inv
+            if torch.is_grad_enabled():
+                levels[-1]["child_perm"] = perm   # for _expand's backward
         else:
             alive = alive_c
 
@@ -386,7 +404,7 @@ def render_sample(sa, static, prep, cfg: RaytracingConfig,
         if inv is not None:
             kept = inv < acc.shape[0]
             take = torch.clamp(inv, max=acc.shape[0] - 1)
-            expanded = torch.where(kept[:, None], acc[take], 0.0)
+            expanded = _expand(acc, kept, take, parent["child_perm"])
             id_expanded = torch.where(kept, id_acc[take], 0)
         else:
             expanded = acc

@@ -13,6 +13,9 @@
   restricted to S over the materials' base colour, roughness and
   reflectivity and the lights' colour and intensity.
 - ``grad_stats`` and the ``grad`` spans under a profiler.
+- Queue factor 1, so every level's children are compacted: the fold's
+  expansion, which autograd differentiates through ``index_copy``, gives
+  plain indexing's loss and gradients bit for bit.
 """
 import json
 import os
@@ -27,6 +30,7 @@ from rustray_tpu_torch import EngineConfig, render, spans, to_torch
 from rustray_tpu_torch.models.procedural import bench_scene, \
     demo_spheres_scene
 from rustray_tpu_torch.parallel import shard
+from rustray_tpu_torch.render import wavefront
 
 torch.set_num_threads(1)
 
@@ -221,3 +225,29 @@ def test_grad_stats_and_spans(demo, tmp_path):
     assert all(t0 <= e["ts"] and e["ts"] + e["dur"] <= t1 for e in events
                if e["name"].startswith(("grad.", "chunk.")))
     assert spans.last["grad"] > spans.last["grad.reduce"] > 0
+
+
+def test_compaction_gradient_equals_plain_indexing(monkeypatch):
+    scene = bench_scene(grid=2, lat=10, lon=14, width=48, height=32,
+                        monte_carlo=True, samples=1)
+    scene.raytracing_config.max_recursion = 3
+    sa, static, cfg = _scene(scene)
+    target = np.random.default_rng(6).uniform(0.0, 1.0, (32, 48, 3)) \
+        .astype(np.float32)
+    engine = EngineConfig(seed=2**31 + 11, queue_factor=1.0)
+    expand, calls = wavefront._expand, []
+    monkeypatch.setattr(wavefront, "_expand",
+                        lambda *a: calls.append(a[3] is not None)
+                        or expand(*a))
+    loss, grads = shard.render_loss_and_grad(sa, static, cfg, target, engine)
+    assert calls == [True] * 3
+    monkeypatch.setattr(wavefront, "_expand",
+                        lambda acc, kept, take, perm: torch.where(
+                            kept[:, None], acc[take], 0.0))
+    p_loss, p_grads = shard.render_loss_and_grad(sa, static, cfg, target,
+                                                 engine)
+    assert float(loss) == float(p_loss)
+    a, b = _flat(grads), _flat(p_grads)
+    assert any(np.abs(v).max() > 0 for v in b.values())
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=str(k))
