@@ -1082,11 +1082,8 @@ def _eager(fn):
     """``fn()`` with the chunk program run eagerly on the card:
     build_chunk_fn per chunk, with its host syncs (the parent's loop)."""
     from rustray_tpu_torch.render import wavefront
-    wavefront._CAPTURE = False
-    try:
+    with wavefront.eager():
         return fn()
-    finally:
-        wavefront._CAPTURE = True
 
 
 def _mini_scene(glass):
@@ -1235,11 +1232,11 @@ def tools_phase(smi, sa, static, cfg):
 
 
 def _chunk_programs():
-    """The cached chunk programs (not the frame programs, pools or scene
-    buffers) and their queue factors (the JAX key's 11th item)."""
+    """The cached chunk programs (not the pools or scene buffers) and
+    their queue factors (the JAX key's 11th item)."""
     from rustray_tpu_torch.render import wavefront
     keys = [k for k in wavefront._RENDERER_CACHE
-            if k[0] not in ("pool", "scene") and k[-3] != "frame"]
+            if k[0] not in ("pool", "scene")]
     return len(keys), sorted({k[10] for k in keys})
 
 

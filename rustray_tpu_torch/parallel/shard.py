@@ -23,6 +23,7 @@ scales them by the number of sample shards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -32,9 +33,9 @@ import torch.distributed as dist
 
 from .. import rng, spans
 from ..config import EngineConfig, RaytracingConfig
-from ..render.wavefront import (build_chunk_fn, finish_frame, frame_levels,
-                                max_queue_factor, prepare_frame)
-from ..utils.mathutil import sample_pattern
+from ..render.wavefront import (build_chunk_fn, chunk_cells, chunk_key,
+                                chunk_slab, finish_frame, frame_levels,
+                                max_queue_factor, prepare_frame, raise_queue)
 
 # rays dropped past the queue cap inside render_loss_and_grad, summed over
 # the world (it has no auto-raise, as in the JAX package)
@@ -110,60 +111,6 @@ def _sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return x
 
 
-def _pad_pixels(static, n_rays_shards, start=0, count=None):
-    """Pixel index slab [start, start+count) padded to the ray-shard count.
-
-    Every chunk is padded to the SAME total (``count`` rounded up to the
-    shard count) regardless of how many pixels remain, so all chunks share
-    one compiled sharded program — a final partial chunk with a different
-    lane count would retrigger a full jit compile (ADVICE r4)."""
-    n_pix = static.width * static.height
-    if count is None:
-        count = n_pix
-    per = -(-count // n_rays_shards)
-    total = per * n_rays_shards
-    idx = np.minimum(start + np.arange(total), n_pix - 1)
-    valid = (start + np.arange(total)) < n_pix
-    px = (idx % static.width).astype(np.int32)
-    py = (idx // static.width).astype(np.int32)
-    return px, py, valid, min(count, n_pix - start)
-
-
-def _pad_cells(cfg, engine, n_sample_shards):
-    cells = sample_pattern(cfg.samples, engine.seed)
-    s = cells.shape[0]
-    per = -(-s // n_sample_shards)
-    total = per * n_sample_shards
-    pad = total - s
-    cells = np.concatenate([cells, np.zeros((pad, 2), np.int32)])
-    cell_idx = np.arange(total, dtype=np.int32)
-    cell_valid = cell_idx < s
-    return cells, cell_idx, cell_valid
-
-
-def _shard(x: np.ndarray, i: int, k: int) -> np.ndarray:
-    """The i-th of k equal slabs of ``x`` (padded to a multiple of k)."""
-    per = x.shape[0] // k
-    return x[i * per:(i + 1) * per]
-
-
-def _rank_cells(cfg, engine, mesh: Mesh):
-    cells = _pad_cells(cfg, engine, mesh.shape["samples"])
-    return tuple(_shard(x, mesh.sample, mesh.shape["samples"])
-                 for x in cells)
-
-
-def _rank_pixels(static, mesh: Mesh, dev, start=0, count=None):
-    """This rank's (px, py, valid) tensors and global pixel indices of the
-    padded slab [start, start+count)."""
-    px, py, valid, _ = _pad_pixels(static, mesh.shape["rays"], start, count)
-    pix = start + np.arange(px.shape[0])
-    px, py, valid, pix = (_shard(x, mesh.ray, mesh.shape["rays"])
-                          for x in (px, py, valid, pix))
-    return (torch.as_tensor(px, device=dev), torch.as_tensor(py, device=dev),
-            torch.as_tensor(valid, device=dev), pix)
-
-
 @torch.no_grad()
 def render_sharded(sa, static, cfg: RaytracingConfig,
                    engine: EngineConfig = None,
@@ -190,51 +137,45 @@ def render_sharded(sa, static, cfg: RaytracingConfig,
     W, H = static.width, static.height
     n_pix = W * H
     span = min(engine.chunk_pixels * mesh.shape["rays"], n_pix)
-    cells, cell_idx, cell_valid = _rank_cells(cfg, engine, mesh)
+    cells = chunk_cells(cfg, engine.seed, mesh.sample, mesh.shape["samples"])
     # object id: the last sample wins, so only the rank holding the last
     # sample cell contributes its id to the sum over "samples"
-    owns_last = bool((cell_idx == cfg.samples - 1).any())
-    key = rng.PRNGKey(engine.seed)
+    owns_last = bool((cells[1] == cfg.samples - 1).any())
     prep, boxes = prepare_frame(sa, static, engine)
 
-    eng = engine
-    chunk_fn = build_chunk_fn(static, cfg, eng, n_levels)
     color = torch.zeros((n_pix, 3), device=dev)
     depth = torch.zeros((n_pix,), device=dev)
     normal = torch.zeros((n_pix, 3), device=dev)
     obj_id = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
     device_rays = dropped_rays = 0
 
+    def render_at(px, py, valid, key, eng):
+        c, d, n, oid, n_drop, traced = build_chunk_fn(
+            static, cfg, eng, n_levels)(sa, prep, boxes, px, py, valid,
+                                        *cells, key)
+        c, d, n = (_sum(x, mesh, "samples") for x in (c, d, n))
+        oid = _sum(oid if owns_last else torch.zeros_like(oid), mesh,
+                   "samples")
+        n_drop, traced = _sum(torch.stack([n_drop, traced]), mesh,
+                              "world").tolist()
+        return (c, d, n, oid), n_drop, traced
+
+    eng = engine
     for start in range(0, n_pix, span):
-        px, py, valid, pix = _rank_pixels(static, mesh, dev, start, span)
-        while True:
-            c, d, n, oid, n_drop, traced = chunk_fn(
-                sa, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
-                rng.fold_in(key, start))
-            c, d, n = (_sum(x, mesh, "samples") for x in (c, d, n))
-            oid = _sum(oid if owns_last else torch.zeros_like(oid), mesh,
-                       "samples")
-            n_drop, traced = _sum(torch.stack([n_drop, traced]), mesh,
-                                  "world").tolist()
-            if n_drop == 0 or eng.queue_factor >= max_qf:
-                if n_drop:
-                    print(f"warning: dropped {n_drop} live secondary rays "
-                          f"at queue_factor={eng.queue_factor} (cap "
-                          f"{max_qf}); image may deviate from the full "
-                          f"Whitted tree")
-                break
-            new_qf = min(eng.queue_factor * 2.0, max_qf)
-            print(f"info: {n_drop} live secondary rays beyond "
-                  f"queue_factor={eng.queue_factor}; re-rendering sharded "
-                  f"chunk with queue_factor={new_qf}")
-            eng = dataclasses.replace(eng, queue_factor=new_qf)
-            chunk_fn = build_chunk_fn(static, cfg, eng, n_levels)
-        device_rays += traced
+        px, py, valid, pix = chunk_slab(static, start, span, dev, mesh.ray,
+                                        mesh.shape["rays"])
+        at = functools.partial(render_at, px, py, valid,
+                               chunk_key(engine.seed, start))
+        out, n_drop, traced = at(eng)
+        rerun, eng, attempts, n_drop = raise_queue(at, eng, n_drop, max_qf,
+                                                   "sharded chunk")
+        # as in the JAX package, only the last attempt's rays count
+        device_rays += (attempts or [traced])[-1]
         dropped_rays += n_drop
-        sel = valid.cpu().numpy()
-        at = torch.as_tensor(pix[sel], device=dev)
-        for acc, part in zip((color, depth, normal, obj_id), (c, d, n, oid)):
-            acc[at] = part[sel]
+        mine = pix[valid]
+        for acc, part in zip((color, depth, normal, obj_id),
+                             out if rerun is None else rerun):
+            acc[mine] = part[valid]
 
     # each rank holds its own ray shard's pixels (the same on every rank
     # of a "samples" line): the sum over "rays" is the whole frame
@@ -328,14 +269,15 @@ def _loss_and_grad(sa, static, cfg, target, engine, mesh, pixel_weight,
     inv_s = 1.0 / cfg.samples
     one_chunk = -(-n_pix // mesh.shape["rays"]) <= engine.chunk_pixels
     span = n_pix if one_chunk else engine.chunk_pixels * mesh.shape["rays"]
-    key = rng.PRNGKey(engine.seed)
-    cells, cell_idx, cell_valid = _rank_cells(cfg, engine, mesh)
+    cells, cell_idx, cell_valid = chunk_cells(cfg, engine.seed, mesh.sample,
+                                              mesh.shape["samples"])
     # one zero row past the frame for the padded pixels
-    tgt = np.concatenate([np.asarray(target, np.float32).reshape(-1, 3),
-                          np.zeros((1, 3), np.float32)])
-    wgt = None if pixel_weight is None else np.concatenate(
+    tgt = torch.as_tensor(np.concatenate(
+        [np.asarray(target, np.float32).reshape(-1, 3),
+         np.zeros((1, 3), np.float32)]), device=dev)
+    wgt = None if pixel_weight is None else torch.as_tensor(np.concatenate(
         [np.asarray(pixel_weight, np.float32).reshape(-1),
-         np.zeros((1,), np.float32)])
+         np.zeros((1,), np.float32)]), device=dev)
 
     params = {grp: {k: v.detach().clone().requires_grad_(True)
                     for k, v in leaves.items()}
@@ -356,24 +298,24 @@ def _loss_and_grad(sa, static, cfg, target, engine, mesh, pixel_weight,
         with spans.span("grad.forward"):
             if ev:
                 ev[0].record()
-            px, py, valid, pix = _rank_pixels(static, mesh, dev, start, span)
-            at = np.minimum(pix, n_pix)
+            px, py, valid, pix = chunk_slab(static, start, span, dev,
+                                            mesh.ray, mesh.shape["rays"])
+            at = torch.clamp(pix, max=n_pix)
             c, _, _, _, drops, _ = chunk_fn(
                 sa2, prep, boxes, px, py, valid, cells, cell_idx, cell_valid,
-                key if one_chunk else rng.fold_in(key, start))
+                rng.PRNGKey(engine.seed) if one_chunk
+                else chunk_key(engine.seed, start))
             n_drop = n_drop + drops
             color = _sum(c.detach().clone(), mesh,
                          "samples").requires_grad_(True)
-            err = (color * inv_s - torch.as_tensor(tgt[at], device=dev)) ** 2
+            err = (color * inv_s - tgt[at]) ** 2
             if wgt is not None:
-                err = err * torch.as_tensor(wgt[at], device=dev)[:, None]
+                err = err * wgt[at][:, None]
             # normalized here so loss AND grads share the same scale
             part = torch.sum(torch.where(valid[:, None], err, 0.0)) \
                 / (n_pix * 3)
             if frame is not None:
-                sel = valid.cpu().numpy()
-                frame[torch.as_tensor(pix[sel], device=dev)] = \
-                    color.detach()[valid]
+                frame[pix[valid]] = color.detach()[valid]
         with spans.span("grad.backward"):
             if ev:
                 ev[1].record()

@@ -25,6 +25,7 @@ XLA cluster walk in plain torch (ops/cluster_trace).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict
@@ -469,8 +470,8 @@ def _reduce_cells(n_cells: int, samples, n: int, dev, keep=None):
     return tuple(sums)
 
 
-# False runs the chunk program eagerly on every device (the eager frame that
-# chip_smoke.py holds the captured one against); read at call time
+# False runs the chunk program eagerly on every device (inside eager());
+# read at call time
 _CAPTURE = True
 # captures of the chunk program and its replays since reset_graph_stats():
 # counts, the seconds of every capture (its ``chunk.capture`` span: warm-up
@@ -480,7 +481,7 @@ _CAPTURE = True
 graph_stats = {"captures": 0, "capture_seconds": 0.0, "replays": 0,
                "if_nodes": {}}
 
-# The chunk and frame programs built so far, as the JAX package's
+# The chunk programs built so far, as the JAX package's
 # _RENDERER_CACHE holds its jitted ones: a render() whose key is cached
 # builds nothing.  On CUDA it also holds what the cached graphs read and
 # write: one graph memory pool per device (key ("pool", device)) and, per
@@ -494,6 +495,18 @@ _RENDERER_CACHE: Dict[tuple, object] = {}
 def reset_graph_stats() -> None:
     graph_stats.update(captures=0, capture_seconds=0.0, replays=0,
                        if_nodes={})
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the chunk program eagerly on every device inside the block: the
+    eager frame that the captured one is held to."""
+    global _CAPTURE
+    was, _CAPTURE = _CAPTURE, False
+    try:
+        yield
+    finally:
+        _CAPTURE = was
 
 
 def captures(static, engine: EngineConfig, device) -> bool:
@@ -799,72 +812,6 @@ def make_chunk_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
     return fn
 
 
-def _frame_fn(chunk_fn, static, chunk: int, n_chunks: int):
-    """Every chunk of the frame through ``chunk_fn``, in order, with no
-    host sync of its own (the JAX package's chunk ``scan``)."""
-    W, H = static.width, static.height
-    n_pix = W * H
-    n_pad = n_chunks * chunk
-
-    def frame_fn(sa, prep, boxes, cells, cell_idx, cell_valid, key):
-        dev = sa.verts.device
-        idx = torch.arange(n_pad, device=dev)
-        valid = (idx < n_pix).reshape(n_chunks, chunk)
-        idx_c = torch.clamp(idx, max=n_pix - 1)
-        px = (idx_c % W).to(torch.int32).reshape(n_chunks, chunk)
-        py = (idx_c // W).to(torch.int32).reshape(n_chunks, chunk)
-        color = torch.zeros((n_pad, 3), device=dev)
-        depth = torch.zeros((n_pad,), device=dev)
-        normal = torch.zeros((n_pad, 3), device=dev)
-        obj_id = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
-        drops, traced = [], []
-        for ci in range(n_chunks):
-            start = ci * chunk
-            c, dpt, nrm, oid, dr, tr = chunk_fn(
-                sa, prep, boxes, px[ci], py[ci], valid[ci], cells, cell_idx,
-                cell_valid, rng.fold_in(key, start))
-            for acc, part in zip((color, depth, normal, obj_id),
-                                 (c, dpt, nrm, oid)):
-                acc[start:start + chunk] = part
-            drops.append(dr)
-            traced.append(tr)
-        return (color[:n_pix], depth[:n_pix], normal[:n_pix], obj_id[:n_pix],
-                torch.stack(drops), torch.stack(traced))
-
-    return frame_fn
-
-
-def build_frame_fn(static, cfg: RaytracingConfig, engine: EngineConfig,
-                   n_levels: int, chunk: int, n_chunks: int):
-    """The whole-frame renderer of the JAX package's ``build_frame_fn``
-    over :func:`build_chunk_fn`, eager.
-
-    Returns f(sa, prep, boxes, cells, cell_idx, cell_valid, key) →
-    (color, depth, normal, obj_id: (W·H, …) sums over the cells,
-    drops (n_chunks,) and traced (n_chunks,): per-chunk dropped and device
-    rays, int64 tensors on the scene's device)."""
-    return _frame_fn(build_chunk_fn(static, cfg, engine, n_levels), static,
-                     chunk, n_chunks)
-
-
-def make_frame_renderer(static, cfg: RaytracingConfig, engine: EngineConfig,
-                        n_levels: int, chunk: int, n_chunks: int, scene):
-    """Build (or fetch from the cache) :func:`build_frame_fn` over
-    :func:`make_chunk_renderer` for the scene tensors ``scene``: one CUDA
-    graph of the chunk program (where :func:`captures` says so), replayed
-    for every chunk and cell of every frame of the key.  The key is the
-    chunk program's and ("frame", chunk, n_chunks), as in the JAX
-    package."""
-    key = _config_key(static, cfg, engine, n_levels, scene) + (
-        "frame", chunk, n_chunks)
-    cached = _RENDERER_CACHE.get(key)
-    if cached is None:
-        cached = _RENDERER_CACHE[key] = _frame_fn(
-            make_chunk_renderer(static, cfg, engine, n_levels, scene),
-            static, chunk, n_chunks)
-    return cached
-
-
 def frame_levels(sa, cfg: RaytracingConfig) -> int:
     """Number of wavefront levels: 1 + max_recursion when any material can
     spawn reflection/refraction children, else 1."""
@@ -880,6 +827,73 @@ def frame_levels(sa, cfg: RaytracingConfig) -> int:
 def max_queue_factor(n_levels: int) -> float:
     """Cap for the drop auto-raise: the Whitted tree doubles per bounce."""
     return float(min(2 ** max(n_levels - 1, 0), 64))
+
+
+# The chunk walk: what render(), render_sharded and render_loss_and_grad
+# take for each chunk of the frame.
+
+def chunk_slab(static, start: int, span: int, dev, ray: int = 0,
+               n_rays: int = 1):
+    """Ray shard ``ray`` of ``n_rays`` of the chunk [start, start + span):
+    the chunk padded to a multiple of ``n_rays`` pixels (so the frame's
+    last chunk has the lane count of the others) and cut into ``n_rays``
+    equal slabs, as the JAX package's ``_pad_pixels`` and ``_shard``.
+    Returns (px, py, valid, pix) on ``dev``: int32 pixel coordinates, the
+    indices clamped at W·H − 1; the mask of pixels inside the frame; the
+    global pixel indices (int64)."""
+    n_pix = static.width * static.height
+    per = -(-span // n_rays)
+    pix = torch.arange(start + ray * per, start + (ray + 1) * per, device=dev)
+    idx = torch.clamp(pix, max=n_pix - 1)
+    return ((idx % static.width).to(torch.int32),
+            (idx // static.width).to(torch.int32), pix < n_pix, pix)
+
+
+def chunk_key(seed: int, start: int) -> torch.Tensor:
+    """The key of the chunk at pixel ``start``: ``fold_in(PRNGKey(seed),
+    start)``."""
+    return rng.fold_in(rng.PRNGKey(seed), start)
+
+
+def chunk_cells(cfg: RaytracingConfig, seed: int, shard: int = 0,
+                n_shards: int = 1):
+    """Sample shard ``shard`` of ``n_shards`` of the frame's sample cells
+    (:func:`sample_pattern`), padded to a multiple of ``n_shards`` with
+    zero cells, as the JAX package's ``_pad_cells`` and ``_shard``.
+    Returns numpy (cells (S, 2) int32, cell_idx (S,) their global indices,
+    cell_valid (S,) the mask of real cells)."""
+    cells = sample_pattern(cfg.samples, seed)
+    s = cells.shape[0]
+    per = -(-s // n_shards)
+    cells = np.concatenate([cells, np.zeros((per * n_shards - s, 2),
+                                            np.int32)])
+    cell_idx = np.arange(per * n_shards, dtype=np.int32)
+    mine = slice(shard * per, (shard + 1) * per)
+    return cells[mine], cell_idx[mine], cell_idx[mine] < s
+
+
+def raise_queue(render_at, eng: EngineConfig, n_drop: int, max_qf: float,
+                what: str = "chunk"):
+    """The queue auto-raise of a chunk that dropped ``n_drop`` live rays
+    at the carried engine ``eng``: re-render it with ``render_at(engine)``
+    → (outputs, dropped, traced) at the factor doubled until nothing drops
+    or the factor reaches ``max_qf``.  Returns (the last attempt's
+    outputs, None when none ran; the engine reached; the traced rays of
+    each attempt; the rays still dropped)."""
+    out, traced = None, []
+    while n_drop > 0 and eng.queue_factor < max_qf:
+        new_qf = min(eng.queue_factor * 2.0, max_qf)
+        print(f"info: {n_drop} live secondary rays beyond "
+              f"queue_factor={eng.queue_factor}; re-rendering {what} "
+              f"with queue_factor={new_qf}")
+        eng = dataclasses.replace(eng, queue_factor=new_qf)
+        out, n_drop, n_traced = render_at(eng)
+        traced.append(n_traced)
+    if n_drop:
+        print(f"warning: dropped {n_drop} live secondary rays at "
+              f"queue_factor={eng.queue_factor} (cap {max_qf}); "
+              f"image may deviate from the full Whitted tree")
+    return out, eng, traced, n_drop
 
 
 def prepare_frame(sa, static, engine: EngineConfig):
@@ -921,8 +935,11 @@ def render(sa, static, cfg: RaytracingConfig, engine: EngineConfig = None,
     the partial frame.  ``preview_path``: write the partial frame as a PNG
     after every ``preview_every``-th chunk and after the last one.  Any of
     the three renders chunk by chunk; without them the frame renders as
-    the JAX package's device loop (:func:`make_frame_renderer`).  Both take
-    their chunk programs from ``_RENDERER_CACHE`` (one per queue factor):
+    the JAX package's device loop: every chunk per group of
+    ``samples_per_dispatch`` cells, one fetch of the counts per group.
+    Both walk the chunks with :func:`chunk_slab`, :func:`chunk_key` and
+    :func:`raise_queue`, and take their chunk programs from
+    ``_RENDERER_CACHE`` (one per queue factor):
     a later call of the same key builds and captures nothing and replays
     the CUDA graphs over its own scene tensors, copied into the cached
     buffers once at its start (:func:`bind_scene`).
@@ -941,10 +958,9 @@ def _render(sa, static, cfg, engine, checkpoint_path, max_chunks,
     W, H = static.width, static.height
     n_pix = W * H
     chunk = min(engine.chunk_pixels, n_pix)
-    key = rng.PRNGKey(engine.seed)
     with spans.span("render.prepare"):
         n_levels = frame_levels(sa, cfg)
-        cells = sample_pattern(cfg.samples, engine.seed)
+        cells, cell_idx, cell_valid = chunk_cells(cfg, engine.seed)
         prep, boxes = prepare_frame(sa, static, engine)
     # what the chunk programs read: on the card, the cached graphs' buffers
     # holding this frame's tensors
@@ -985,46 +1001,34 @@ def _render(sa, static, cfg, engine, checkpoint_path, max_chunks,
             print(f"warning: checkpoint {checkpoint_path} does not match "
                   f"this render config; starting from scratch")
 
-    cell_idx = np.arange(cells.shape[0])
-    cell_valid = np.ones(cells.shape[0], bool)
+    def render_at(start):
+        """The chunk at ``start`` with every cell, fetched: engine →
+        (outputs, dropped, traced)."""
+        px, py, valid, _ = chunk_slab(static, start, chunk, dev)
+        key = chunk_key(engine.seed, start)
 
-    def render_chunk(start, eng):
-        fn = make_chunk_renderer(static, cfg, eng, n_levels, scene)
-        idx = torch.arange(start, start + chunk, device=dev)
-        valid = idx < n_pix
-        idx_c = torch.clamp(idx, max=n_pix - 1)
-        px = (idx_c % W).to(torch.int32)
-        py = (idx_c // W).to(torch.int32)
-        *out, drops, traced = fn(*scene, px, py, valid, cells, cell_idx,
-                                 cell_valid, rng.fold_in(key, start))
-        with spans.span("render.fetch"):
-            n_drop, n_traced = graphs.fetch(torch.stack([drops, traced]))
-        return out, int(n_drop), int(n_traced)
+        def at(eng):
+            fn = make_chunk_renderer(static, cfg, eng, n_levels, scene)
+            *out, drops, traced = fn(*scene, px, py, valid, cells, cell_idx,
+                                     cell_valid, key)
+            with spans.span("render.fetch"):
+                n_drop, n_traced = graphs.fetch(torch.stack([drops, traced]))
+            return out, int(n_drop), int(n_traced)
 
-    def raise_and_rerender(start, n_drop):
-        """Re-render a chunk that dropped ``n_drop`` live rays, with the
-        full sample set, at the carried factor doubled until nothing drops
-        or the factor reaches its cap, counting every attempt's rays and
-        the rays still dropped.  Returns the last attempt's outputs, None
-        when none ran."""
+        return at
+
+    def rerender(at, n_drop):
+        """Re-render a chunk that dropped ``n_drop`` live rays from the
+        carried factor (:func:`raise_queue`), counting every attempt's
+        rays and the rays still dropped.  Returns the last attempt's
+        outputs, None when none ran."""
         nonlocal eng, device_rays, dropped_rays
-        out = None
         if not n_drop:
-            return out
+            return None
         with spans.span("render.rerender"):
-            while n_drop > 0 and eng.queue_factor < max_qf:
-                new_qf = min(eng.queue_factor * 2.0, max_qf)
-                print(f"info: {n_drop} live secondary rays beyond "
-                      f"queue_factor={eng.queue_factor}; re-rendering chunk "
-                      f"with queue_factor={new_qf}")
-                eng = dataclasses.replace(eng, queue_factor=new_qf)
-                out, n_drop, traced = render_chunk(start, eng)
-                device_rays += traced
-            if n_drop:
-                print(f"warning: dropped {n_drop} live secondary rays at "
-                      f"queue_factor={eng.queue_factor} (cap {max_qf}); "
-                      f"image may deviate from the full Whitted tree")
-                dropped_rays += n_drop
+            out, eng, traced, n_drop = raise_queue(at, eng, n_drop, max_qf)
+        device_rays += sum(traced)
+        dropped_rays += n_drop
         return out
 
     def put_chunk(start, out):
@@ -1040,33 +1044,42 @@ def _render(sa, static, cfg, engine, checkpoint_path, max_chunks,
     if checkpoint_path is None and max_chunks is None and preview_path is None:
         # the frame path (the JAX package's device loop): every chunk of
         # the frame per group of samples_per_dispatch cells, with one fetch
-        # of the drop and ray counts per group; group sums add into the
-        # frame in group order and the last group's object id wins
-        n_chunks = -(-n_pix // chunk)
-        frame = make_frame_renderer(static, cfg, engine, n_levels, chunk,
-                                    n_chunks, scene)
+        # of the drop and ray counts per group; each chunk's group sums add
+        # into the frame in group order and the last group's object id wins
+        starts = range(0, n_pix, chunk)
+        # the padded frame's slab, cut into every chunk's
+        px, py, valid, _ = chunk_slab(static, 0, len(starts) * chunk, dev)
+        keys = [chunk_key(engine.seed, s) for s in starts]
+        fn = make_chunk_renderer(static, cfg, engine, n_levels, scene)
         per = max(1, int(engine.samples_per_dispatch))
-        drops = np.zeros((n_chunks,), np.int64)
+        drops = np.zeros((len(starts),), np.int64)
         for g0 in range(0, len(cells), per):
-            g1 = min(g0 + per, len(cells))
+            g = slice(g0, g0 + per)
             with spans.span("render.group"):
-                c, dpt, nrm, oid, dr, tr = frame(*scene, cells[g0:g1],
-                                                 cell_idx[g0:g1],
-                                                 cell_valid[g0:g1], key)
-                color += c
-                depth += dpt
-                normal += nrm
-                obj_id = oid
+                dr, tr = [], []
+                for start, key in zip(starts, keys):
+                    c, dpt, nrm, oid, d, t = fn(
+                        *scene, px[start:start + chunk],
+                        py[start:start + chunk], valid[start:start + chunk],
+                        cells[g], cell_idx[g], cell_valid[g], key)
+                    nv = min(chunk, n_pix - start)
+                    for acc, part in zip((color, depth, normal),
+                                         (c, dpt, nrm)):
+                        # add_, not +=, which copies the slice back
+                        acc[start:start + nv].add_(part[:nv])
+                    obj_id[start:start + nv] = oid[:nv]
+                    dr.append(d)
+                    tr.append(t)
                 with spans.span("render.fetch"):
-                    counts = graphs.fetch(torch.stack([dr, tr]))
+                    counts = graphs.fetch(torch.stack([torch.stack(dr),
+                                                       torch.stack(tr)]))
                 drops += counts[0]
                 device_rays += int(counts[1].sum())
         # chunks that dropped live rays re-render in chunk order
         for ci in np.nonzero(drops)[0]:
-            start = int(ci) * chunk
-            out = raise_and_rerender(start, int(drops[ci]))
+            out = rerender(render_at(starts[ci]), int(drops[ci]))
             if out is not None:
-                put_chunk(start, out)
+                put_chunk(starts[ci], out)
         with spans.span("render.finish"):
             return finish_frame(color, depth, normal, obj_id, cfg, W, H,
                                 device_rays, dropped_rays)
@@ -1076,9 +1089,10 @@ def _render(sa, static, cfg, engine, checkpoint_path, max_chunks,
     if max_chunks is not None:
         starts = starts[:max_chunks]
     for done, start in enumerate(starts, 1):
-        out, n_drop, traced = render_chunk(start, engine)
+        at = render_at(start)
+        out, n_drop, traced = at(engine)
         device_rays += traced
-        rerun = raise_and_rerender(start, n_drop)
+        rerun = rerender(at, n_drop)
         put_chunk(start, out if rerun is None else rerun)
         if preview_path is not None and (done % preview_every == 0
                                          or start + chunk >= n_pix):

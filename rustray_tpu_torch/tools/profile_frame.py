@@ -15,7 +15,7 @@ chunk program runs as CUDA graphs: the unprofiled frame captures them (a
 warm-up and a capture per queue factor) and replays them once per chunk
 and cell; the profiled frame replays the cached graphs.  With ``eager``
 both frames run the chunk program eagerly instead, with its host syncs
-(``render/wavefront._CAPTURE = False``: the program the graphs are held
+(``render/wavefront.eager()``: the program the graphs are held
 to).  Each run is a process of its own, as the profiler's state after
 long sessions in one process was seen to drop device events.
 It prints the captures, their seconds and the replays of each frame, and,
@@ -25,6 +25,7 @@ profiled wall) and the kernels with the most device time.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -81,31 +82,30 @@ def main(argv=None) -> int:
     budget = bt._VMEM_PACK_BUDGET
     if algo == "ungated":
         bt._VMEM_PACK_BUDGET = 0
-    wavefront._CAPTURE = not eager
     try:
-        small = load_bench_scene(320, 180)
-        sa, st = to_torch(*small.compile(), "cuda")
-        cfg = small.raytracing_config
-        cfg.samples = 1
-        render(sa, st, cfg, engine)                      # warm-up
-        scene = load_bench_scene(1280, 720)
-        sa, st = to_torch(*scene.compile(), "cuda")
-        cfg = scene.raytracing_config
-        cfg.samples = samples
-        torch.cuda.synchronize()
-        wavefront.reset_graph_stats()
-        t0 = time.perf_counter()
-        render(sa, st, cfg, engine)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        g = dict(wavefront.graph_stats)
-        from ..build import BUILD_DIR
-        trace = os.path.join(BUILD_DIR, f"trace_{algo}{'_eager' * eager}"
-                             ".json")
-        out, p = profile(lambda: render(sa, st, cfg, engine), trace)
+        with wavefront.eager() if eager else contextlib.nullcontext():
+            small = load_bench_scene(320, 180)
+            sa, st = to_torch(*small.compile(), "cuda")
+            cfg = small.raytracing_config
+            cfg.samples = 1
+            render(sa, st, cfg, engine)                      # warm-up
+            scene = load_bench_scene(1280, 720)
+            sa, st = to_torch(*scene.compile(), "cuda")
+            cfg = scene.raytracing_config
+            cfg.samples = samples
+            torch.cuda.synchronize()
+            wavefront.reset_graph_stats()
+            t0 = time.perf_counter()
+            render(sa, st, cfg, engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            g = dict(wavefront.graph_stats)
+            from ..build import BUILD_DIR
+            trace = os.path.join(BUILD_DIR,
+                                 f"trace_{algo}{'_eager' * eager}.json")
+            out, p = profile(lambda: render(sa, st, cfg, engine), trace)
     finally:
         bt._VMEM_PACK_BUDGET = budget
-        wavefront._CAPTURE = True
     print(f"{algo}{' eager' * eager}: 1280x720 {samples} spp: wall "
           f"{wall:.3f} s unprofiled "
           f"({g['captures']} captures in {g['capture_seconds']:.3f} s, "

@@ -162,11 +162,11 @@ def test_list_launches_equal_walk_launches(algo):
 
     def counted(capture):
         bt.reset_launches()
-        wavefront._CAPTURE = capture
-        try:
+        if capture:
             render(sa, static, cfg, eng)
-        finally:
-            wavefront._CAPTURE = True
+        else:
+            with wavefront.eager():
+                render(sa, static, cfg, eng)
         return (dict(bt.list_launches), dict(bt.launches),
                 dict(bt.ungated_launches))
 

@@ -149,13 +149,10 @@ def test_stand_in_frame_equals_eager(mini, stand_in, walk):
     sa, static, cfg = mini
     eng = EngineConfig(**{**(TWIN if walk == "twin" else OCTET),
                           "chunk_pixels": 2048}, samples_per_dispatch=1)
-    wavefront._CAPTURE = False
-    try:
+    with wavefront.eager():
         _reset()
         eager = render(sa, static, cfg, eng)
         e_counts = _counts()
-    finally:
-        wavefront._CAPTURE = True
     first = render(sa, static, cfg, eng)
     g = dict(wavefront.graph_stats)
     assert g["captures"] == 1 and g["replays"] == 3 * 2

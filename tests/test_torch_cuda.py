@@ -291,11 +291,8 @@ FRAME_KEYS = ("image", "color", "depth", "normal", "object_id",
 def _eager(fn):
     """``fn()`` with the chunk program run eagerly (no CUDA graph)."""
     from rustray_tpu_torch.render import wavefront
-    wavefront._CAPTURE = False
-    try:
+    with wavefront.eager():
         return fn()
-    finally:
-        wavefront._CAPTURE = True
 
 
 def _assert_same_frame(a, b):

@@ -30,8 +30,9 @@ from conftest import assert_images_close
 from rustray_tpu.config import EngineConfig as JaxEngineConfig
 from rustray_tpu.models.procedural import demo_spheres_scene
 from rustray_tpu.parallel import shard as j_shard
-from rustray_tpu_torch import EngineConfig, to_torch
+from rustray_tpu_torch import EngineConfig, render, to_torch
 from rustray_tpu_torch.parallel import dryrun, shard
+from rustray_tpu_torch.render import wavefront
 
 torch.set_num_threads(1)
 
@@ -151,17 +152,43 @@ def test_sharded_low_queue_auto_raises(tmp_path):
 
 
 def test_pad_helpers_are_the_jax_packages():
+    """The chunk walk's pixel slabs and sample cells, every shard's
+    concatenated in rank order, are the JAX package's padded ones."""
     scene = demo_spheres_scene(16, 12)
     scene.raytracing_config.samples = 3
     _, static = scene.compile()
     cfg = scene.raytracing_config
-    for args in ((static, 4), (static, 3, 100, 64), (static, 1, 190, 64)):
-        for a, b in zip(shard._pad_pixels(*args), j_shard._pad_pixels(*args)):
-            np.testing.assert_array_equal(a, b)
+    n_pix = static.width * static.height
+    for n, start, count in ((4, 0, n_pix), (3, 100, 64), (1, 190, 64)):
+        px, py, valid, _ = j_shard._pad_pixels(static, n, start, count)
+        slabs = [wavefront.chunk_slab(static, start, count, "cpu", r, n)
+                 for r in range(n)]
+        pix = start + np.arange(px.shape[0])
+        for a, b in zip(zip(*slabs), (px, py, valid, pix)):
+            np.testing.assert_array_equal(torch.cat(a).numpy(), b)
     for n in (1, 2, 4):
-        for a, b in zip(shard._pad_cells(cfg, EngineConfig(), n),
+        cells = [wavefront.chunk_cells(cfg, EngineConfig().seed, i, n)
+                 for i in range(n)]
+        for a, b in zip(zip(*cells),
                         j_shard._pad_cells(cfg, JaxEngineConfig(), n)):
-            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(np.concatenate(a), b)
+
+
+def test_one_rank_render_sharded_is_render():
+    """On the one-rank mesh render_sharded is render() bit for bit: three
+    chunks, the last one partial, both sample cells in one group and a
+    queue factor at which nothing drops (so the two raise rules agree)."""
+    sa, static, cfg = dryrun.load_scene("demo", "cpu")
+    eng = EngineConfig(queue_factor=8.0, chunk_pixels=80)
+    assert 2 * 80 < static.width * static.height < 3 * 80
+    assert cfg.samples <= eng.samples_per_dispatch
+    full = render(sa, static, cfg, eng)
+    assert full["dropped_rays"] == 0
+    sharded = shard.render_sharded(sa, static, cfg, eng)
+    for k in ("image", "color", "depth", "normal", "object_id",
+              "device_rays", "dropped_rays"):
+        np.testing.assert_array_equal(np.asarray(sharded[k]),
+                                      np.asarray(full[k]), err_msg=k)
 
 
 def test_mesh_without_process_group():
