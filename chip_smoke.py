@@ -129,7 +129,8 @@ Phases (each prints its result; any failure raises and exits non-zero):
      1280x720 bench frame at 4 spp through K1, in chunks of 524,288
      pixels per call (the sponza_inverse configuration's), timed with its
      peak memory, its forward and backward device milliseconds
-     (shard.grad_stats) and the launches of the material-row kernel; its
+     (shard.grad_stats) and the launches of the material-row and threefry
+     kernels; its
      image equal to render()'s for the same engine and seed,
      and no ray dropped;
  19. the material-row kernel (csrc/mat_rows.cu, the backward of
@@ -139,12 +140,30 @@ Phases (each prints its result; any failure raises and exits non-zero):
      level (the queue of 2,097,152): against a float64 index_add_ at
      relative L2 1e-6 and bit for bit across two launches, timed beside
      its byte bound (N * 68 + M * 64 bytes at 3.35 TB/s), its twin
-     (index_add_) and PyTorch's indexing backward of the same gather.
+     (index_add_) and PyTorch's indexing backward of the same gather;
+ 20. the threefry kernels (csrc/threefry.cu, rng.fold_in and rng.uniform
+     on CUDA tensors): uniform at the still frame's jitter shapes
+     (65,536 and 262,144 rays, x 2 and x 3 lights x 2) and at odd sizes,
+     from a device key and from host key words, and fold_in with int and
+     tensor data, bit for bit against the plain twin on the card; each
+     kernel's mean over a graph of 20 launches beside the twin's chain
+     (in a graph too) and its bound (the 43 shift and logic operations an
+     element that only the integer pipe runs, at 16.7 T ops/s, or 4 bytes
+     an element at 3.35 TB/s); phase 4's frame rendered again with the
+     twin in the kernels' place (captured anew), equal bit for bit in
+     every AOV; a 1-spp 1280x720 gradient at chunk
+     524,288 with the kernels twice and with the twin: image and loss
+     equal bit for bit, gradients within the kernels' own run-to-run
+     difference; and the kernels a replayed 2-spp K1 frame launches, with
+     the twin and with the kernels, each counted in a torch.profiler trace
+     in a process of its own (``python3 chip_smoke.py --replay-kernels
+     twin|kernel``).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
 phases 4 and 6 (default 2).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -183,8 +202,19 @@ TPU_LISTS = ("none: rustray_tpu/ops/block_trace.py::_block_lists is XLA, "
 # the JAX package's material-row gather, whose transpose XLA derives
 TPU_MAT_ROWS = ("none: the backward of rustray_tpu/ops/traverse.py::"
                 "hit_attributes' material gather is XLA's transpose")
+# the JAX package draws with jax.random, which XLA compiles: no Pallas kernel
+TPU_RNG = "none: jax.random's threefry is XLA, not Pallas"
 KERNEL_SOURCES = ("block_trace", "block_lists", "octet_trace", "octet_bench",
-                  "graph_cond", "mat_rows")
+                  "graph_cond", "mat_rows", "threefry")
+# the still frame's jitter draws per level: a chunk of 65,536 pixels at
+# queue factors 1 and 4, the roughness jitter (N, 2) and the soft shadows'
+# (N, 3 lights, 2)
+RNG_SHAPES = ((65536, 2), (262144, 2), (65536, 3, 2), (262144, 3, 2))
+# threefry's 32-bit operations per element (csrc/threefry.cu): all of
+# them, and those only the integer pipe runs (its shifts and logic; the adds
+# may run on the FMA pipe), and that pipe's rate (132 SMs x 64 lanes x
+# 1.98 GHz)
+RNG_OPS, RNG_ALU_OPS, INT32_OPS_S = 80, 43, 16.7e12
 
 
 def _check(cond, msg):
@@ -836,7 +866,7 @@ def chunked_gradient(smi, sa, static, cfg, chunk=524288):
     import dataclasses
     import numpy as np
     import torch
-    from rustray_tpu_torch import EngineConfig, render
+    from rustray_tpu_torch import EngineConfig, render, rng
     from rustray_tpu_torch.ops import block_trace as bt
     from rustray_tpu_torch.ops import traverse as trav
     from rustray_tpu_torch.parallel import shard
@@ -859,6 +889,7 @@ def chunked_gradient(smi, sa, static, cfg, chunk=524288):
     trav.reset_mat_rows()
     shard.reset_dropped()
     shard.reset_grad_stats()
+    rng.reset_launches()
     t0 = time.perf_counter()
     loss, grads, color = shard.render_loss_and_grad(
         sa, static, cfg4, target, engine, return_color=True)
@@ -875,6 +906,7 @@ def chunked_gradient(smi, sa, static, cfg, chunk=524288):
     _check(all(n > 0 for n in bt.launches.values()),
            f"phase 18: a K1 mode never launched: {dict(bt.launches)}")
     mat_rows = dict(trav.mat_rows)
+    rng_launches = dict(rng.launches)
     _check(mat_rows["launches"] > 0, "phase 18: the material-row kernel "
            "never launched")
     _check(shard.dropped["rays"] == 0 and out["dropped_rays"] == 0,
@@ -894,10 +926,11 @@ def chunked_gradient(smi, sa, static, cfg, chunk=524288):
           f"{st['forward_ms']:.1f} ms, backward {st['backward_ms']:.1f} ms "
           f"of device time; K1 launches {dict(bt.launches)}; material-row "
           f"kernel {mat_rows['launches']} launches over {mat_rows['rows']} "
-          f"rows; image equal to render()'s (max colour difference {diff}); "
-          f"0 dropped ({smi})")
+          f"rows; threefry kernels {rng_launches}; image equal to "
+          f"render()'s (max colour difference {diff}); 0 dropped ({smi})")
     print(f"phase 18 in {time.perf_counter() - start:.1f} s")
-    return dict(secs=secs, peak=peak, mat_rows=mat_rows, **st)
+    return dict(secs=secs, peak=peak, mat_rows=mat_rows, rng=rng_launches,
+                **st)
 
 
 def mat_rows_phase(smi, sa, static, cfg, chunk=524288):
@@ -1617,6 +1650,210 @@ def profiled_frames(smi):
     print(f"phase 16 in {time.perf_counter() - start:.1f} s ({smi})")
 
 
+@contextlib.contextmanager
+def _rng_twin():
+    """rng.fold_in and rng.uniform by the plain twin on every device (the
+    parent's generator); the renderer cache is emptied on entry and exit,
+    so no graph captured with one generator is replayed with the other."""
+    from rustray_tpu_torch import rng
+    from rustray_tpu_torch.render import wavefront
+    saved = rng.fold_in, rng.uniform_words
+    wavefront._RENDERER_CACHE.clear()
+    rng.fold_in, rng.uniform_words = rng.fold_in_twin, rng.uniform_words_twin
+    try:
+        yield
+    finally:
+        rng.fold_in, rng.uniform_words = saved
+        wavefront._RENDERER_CACHE.clear()
+
+
+def _rng_bound_ms(n, ops=RNG_ALU_OPS):
+    return max(ops * n / INT32_OPS_S, 4 * n / 3.35e12) * 1e3
+
+
+def rng_kernels(smi):
+    """Phase 20 (a, b): the threefry kernels against the twin bit for bit
+    at the still frame's shapes and at odd sizes, and timed in graphs of 20
+    launches beside the twin's chain and the bound.  Returns the kernel
+    table's rows (uniform, fold_in), without launches."""
+    import torch
+    from rustray_tpu_torch import rng
+    start = time.perf_counter()
+    host_keys = [rng.fold_in(rng.PRNGKey(s), 65536)
+                 for s in (0, 2 ** 31 + 20, 2 ** 32 - 1)]
+    host_keys += [torch.tensor(w, dtype=torch.int64) for w in (
+        (0, 0), (0xFFFFFFFF, 0xFFFFFFFF))]
+    shapes = RNG_SHAPES + ((0,), (1,), (3,), (5,), (4097,))
+    for hk in host_keys:
+        key = hk.cuda()
+        for shape in shapes:
+            want = rng.uniform_words_twin(*key.unbind(), shape, "cuda")
+            for got in (rng.uniform(key, shape, "cuda"),
+                        rng.uniform(hk, shape, "cuda")):
+                _check(got.shape == want.shape and torch.equal(
+                    got.view(torch.int32), want.view(torch.int32)),
+                    f"phase 20: uniform {shape} under {hk.tolist()} differs "
+                    f"from the twin")
+        for data in (0, 3, 17, 23, 65536, 0xFFFFFFFF):
+            want = rng.fold_in_twin(key, data)
+            _check(torch.equal(rng.fold_in(key, data), want)
+                   and torch.equal(rng.fold_in(key, torch.tensor(
+                       data, dtype=torch.int64, device="cuda")), want),
+                   f"phase 20: fold_in({hk.tolist()}, {data}) differs from "
+                   f"the twin")
+    torch.cuda.synchronize()
+    print(f"phase 20: uniform at {len(shapes)} shapes and fold_in at 6 data "
+          f"under {len(host_keys)} keys, from device keys and host words: "
+          f"bit for bit the twin's on the card")
+    key = host_keys[0].cuda()
+    u_row, f_row = _row(), _row()
+    for shape in RNG_SHAPES:
+        n = 1
+        for e in shape:
+            n *= e
+        ms = _graph_ms(lambda k: rng.uniform(k, shape, "cuda"), [(key,)], 20)
+        twin = _graph_ms(lambda k: rng.uniform_words_twin(
+            *k.unbind(), shape, "cuda"), [(key,)], 20)
+        eager = _cuda_ms(lambda: rng.uniform_words_twin(
+            *key.unbind(), shape, "cuda"), 20)
+        bound = _rng_bound_ms(n)
+        print(f"phase 20: uniform {shape} ({n} floats): kernel {ms:.4f} ms "
+              f"(graph of 20), twin {twin:.4f} ms in a graph, {eager:.4f} "
+              f"ms eagerly; bound {bound:.4f} ms ({RNG_ALU_OPS} integer-pipe "
+              f"operations an element; all {RNG_OPS} on that pipe would "
+              f"take {_rng_bound_ms(n, RNG_OPS):.4f} ms); kernel at "
+              f"{bound / ms:.2%} of its bound, {twin / ms:.1f}x faster "
+              f"than the twin")
+        u_row["ms"] += ms
+        u_row["plain_ms"] += twin
+        u_row["bound_ms"] += bound
+        u_row["tests"] += n
+    ms = _graph_ms(lambda k: rng.fold_in(k, 17), [(key,)], 20)
+    twin = _graph_ms(lambda k: rng.fold_in_twin(k, 17), [(key,)], 20)
+    bound = _rng_bound_ms(1)
+    print(f"phase 20: fold_in: kernel {ms:.4f} ms (graph of 20), twin "
+          f"{twin:.4f} ms in a graph; bound {bound:.2e} ms: a launch")
+    f_row.update(ms=ms, plain_ms=twin, bound_ms=bound, tests=1)
+    print(f"phase 20 (a, b) in {time.perf_counter() - start:.1f} s ({smi})")
+    return u_row, f_row
+
+
+def rng_frames(smi, sa, static, cfg, engine, samples, out4):
+    """Phase 20 (c-e): the kernels' bits in the frame and the gradient
+    against the twin's, and the kernels a replayed frame launches with
+    each.  Returns the kernel child's counts (threefry launches per
+    replayed frame under ``uniform`` and ``fold_in``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from rustray_tpu_torch import EngineConfig, render, rng
+    from rustray_tpu_torch.parallel import shard
+    from rustray_tpu_torch.render import wavefront
+    start = time.perf_counter()
+    cfg_s = dataclasses.replace(cfg, samples=samples)
+    with _rng_twin():
+        twin_out = render(sa, static, cfg_s, engine)
+    diff = _differ(twin_out, out4)
+    _check(not diff, f"phase 20: phase 4's frame with the twin differs in "
+           f"{diff}")
+    print(f"phase 20: phase 4's {samples}-spp frame captured and replayed "
+          f"with the twin: equal bit for bit in {', '.join(FRAME_KEYS)}")
+
+    cfg1 = dataclasses.replace(cfg, samples=1)
+    target = np.full((static.height, static.width, 3), 0.5, np.float32)
+    eng = EngineConfig(seed=20, chunk_pixels=524288)
+
+    def grad():
+        rng.reset_launches()
+        loss, grads, color = shard.render_loss_and_grad(
+            sa, static, cfg1, target, eng, return_color=True)
+        torch.cuda.synchronize()
+        flat = torch.cat([v.detach().reshape(-1).double()
+                          for d in grads.values() for v in d.values()])
+        return float(loss), flat, color.cpu().numpy(), dict(rng.launches)
+
+    wavefront._RENDERER_CACHE.clear()
+    torch.cuda.empty_cache()
+    first, second = grad(), grad()
+    with _rng_twin():
+        twin = grad()
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    rerun, off = rel(second[1], first[1]), rel(twin[1], first[1])
+    _check(np.array_equal(first[2], twin[2]) and first[0] == twin[0],
+           f"phase 20: the gradient's image or loss differs with the twin "
+           f"(loss {first[0]!r} vs {twin[0]!r})")
+    _check(off <= 4.0 * rerun + 1e-12, f"phase 20: the gradients with the "
+           f"twin differ by {off:.3g} (relative L2), the kernels' two runs "
+           f"by {rerun:.3g}")
+    print(f"phase 20: 1-spp gradient at chunk 524,288: image and loss "
+          f"{first[0]!r} equal bit for bit with the twin; gradients' "
+          f"relative L2 to the kernels' first run: twin {off:.3g}, the "
+          f"kernels' second run {rerun:.3g}; threefry kernels {first[3]}, "
+          f"twin {twin[3]}")
+
+    counts = {}
+    for mode in ("twin", "kernel"):
+        run = subprocess.run([sys.executable, os.path.join(
+            ROOT, "chip_smoke.py"), "--replay-kernels", mode], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        _check(run.returncode == 0, f"phase 20: --replay-kernels {mode} "
+               f"failed:\n{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        counts[mode] = json.loads(run.stdout.strip().splitlines()[-1])
+        print(f"phase 20: replayed {samples}-spp K1 frame with the {mode}: "
+              f"{counts[mode]} ({smi})")
+    _check(counts["twin"]["threefry"] == 0 and counts["kernel"]["threefry"]
+           > 0, f"phase 20: threefry kernels in the traces {counts}")
+    _check(counts["kernel"]["kernels"] < counts["twin"]["kernels"],
+           f"phase 20: the kernels launched no fewer kernels {counts}")
+    print(f"phase 20: kernels per replayed {samples}-spp K1 frame: twin "
+          f"{counts['twin']['kernels']}, kernels "
+          f"{counts['kernel']['kernels']} "
+          f"({counts['kernel']['threefry']} of them threefry's)")
+    print(f"phase 20 (c-e) in {time.perf_counter() - start:.1f} s ({smi})")
+    return counts["kernel"]
+
+
+def replay_kernels(mode: str) -> int:
+    """Phase 20's child process: the 2-spp 1280x720 bench frame through K1
+    (phase 4's engine) captured, then replayed under torch.profiler, with
+    rng's kernels (``kernel``) or with the twin in their place (``twin``).
+    Prints one JSON line: the trace's kernels, the threefry kernels among
+    them, device busy, profiled wall and idle share."""
+    sys.path.insert(0, ROOT)
+    from rustray_tpu_torch import EngineConfig, render, to_torch
+    from rustray_tpu_torch.build import BUILD_DIR
+    from rustray_tpu_torch.tools.capture_waves import load_bench_scene
+    from rustray_tpu_torch.tools.devbench import device_summary
+    from rustray_tpu_torch.tools.profile_frame import profile
+    if mode not in ("twin", "kernel"):
+        raise SystemExit(f"chip_smoke: --replay-kernels twin|kernel, not "
+                         f"{mode!r}")
+    scene = load_bench_scene(WIDTH, HEIGHT)
+    sa, static = to_torch(*scene.compile(), "cuda")
+    cfg = scene.raytracing_config
+    cfg.samples = int(os.environ.get("SMOKE_SAMPLES", 2))
+    engine = EngineConfig(chunk_pixels=CHUNK, pallas_block=BLOCK,
+                          queue_factor=1.0)
+    with _rng_twin() if mode == "twin" else contextlib.nullcontext():
+        render(sa, static, cfg, engine)
+        trace = os.path.join(BUILD_DIR, f"trace_rng_{mode}.json")
+        _, p = profile(lambda: render(sa, static, cfg, engine), trace)
+    _, ranked = device_summary(trace, 10 ** 9, ("kernel",))
+    print(json.dumps(dict(
+        kernels=sum(n for _, _, n in ranked),
+        threefry=sum(n for k, _, n in ranked if "threefry" in k),
+        uniform=sum(n for k, _, n in ranked if "threefry_uniform" in k),
+        fold_in=sum(n for k, _, n in ranked if "threefry_fold_in" in k),
+        busy_s=round(p["busy"], 4), wall_s=round(p["wall"], 4),
+        idle=round(p["idle"], 4), captures=p["graph"]["captures"],
+        replays=p["graph"]["replays"])))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1847,6 +2084,10 @@ def main() -> int:
     # ---- phase 19: the material-row kernel at the main path's shapes ----
     mat_row = mat_rows_phase(smi[0], sa, static, cfg)
 
+    # ---- phase 20: the threefry kernels ----
+    u_row, f_row = rng_kernels(smi[0])
+    rng_replay = rng_frames(smi[0], sa, static, cfg, engine, samples, out4)
+
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of the walks, and torch has no
         # call that makes a conditional graph node: library_ms null but for
@@ -1874,7 +2115,11 @@ def main() -> int:
            entry("block_lists", "block_lists.cu", TPU_LISTS,
                  sum(c4["lists"].values()), list_row),
            entry("mat_rows", "mat_rows.cu", TPU_MAT_ROWS,
-                 grad18["mat_rows"]["launches"], mat_row)])
+                 grad18["mat_rows"]["launches"], mat_row),
+           entry("threefry_uniform", "threefry.cu", TPU_RNG,
+                 rng_replay["uniform"], u_row),
+           entry("threefry_fold_in", "threefry.cu", TPU_RNG,
+                 rng_replay["fold_in"], f_row)])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1883,4 +2128,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replay-kernels"] and len(sys.argv) == 3:
+        sys.exit(replay_kernels(sys.argv[2]))
     sys.exit(main())
