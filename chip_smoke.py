@@ -157,7 +157,17 @@ Phases (each prints its result; any failure raises and exits non-zero):
      difference; and the kernels a replayed 2-spp K1 frame launches, with
      the twin and with the kernels, each counted in a torch.profiler trace
      in a process of its own (``python3 chip_smoke.py --replay-kernels
-     twin|kernel``).
+     twin|kernel``);
+ 21. the glTF material model (the benchmark's sponza_pbr scene, written by
+     perfbench/scenes/sponza_pbr.py: every material with 1024² base-colour,
+     normal and metallic-roughness maps, cut-out foliage on 9 spheres) at
+     320x180, 2 spp, with the CLI's engine: the frame that captures, a
+     replayed frame and the eager chunk program's frame equal bit for bit,
+     and the shading census (render/wavefront.shading: hits, cut-out
+     refraction children, texture fetches) equal between the replayed and
+     the eager frame, 4 fetches a hit; the 1-spp bench frame, whose only
+     maps are base colour, counts nothing (``python3 chip_smoke.py --pbr``
+     runs this phase alone).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  SMOKE_SAMPLES overrides the sample count of
@@ -1854,6 +1864,91 @@ def replay_kernels(mode: str) -> int:
     return 0
 
 
+def pbr_phase(smi, sa, static, cfg):
+    """Phase 21: the glTF material model (the benchmark's ``sponza_pbr``
+    scene: every material with base-colour, normal and metallic-roughness
+    maps of 1024², 9 spheres with cut-out foliage) at 320x180, 2 spp, with
+    the CLI's engine: a frame that captures, one that replays and one of
+    the eager chunk program, equal bit for bit, and the shading census
+    (render/wavefront.shading) equal between the replayed frame and the
+    eager one.  The bench frame, whose only maps are base colour, counts
+    nothing, so its graphs launch what they launched before the census."""
+    import dataclasses
+    import tempfile
+    import torch
+    from rustray_tpu_torch import EngineConfig, render, to_torch
+    from rustray_tpu_torch.render import wavefront
+    from rustray_tpu_torch.scene.scene import Scene
+    from perfbench import named
+    start = time.perf_counter()
+
+    def census():
+        return {k: int(v) for k, v in wavefront.shading.items()}
+
+    wavefront.reset_shading()
+    render(sa, static, dataclasses.replace(cfg, samples=1), EngineConfig())
+    _check(census() == {"hits": 0, "cutout": 0, "fetches": 0},
+           f"phase 21: the bench frame counted shading {census()}")
+    _check(not wavefront.counts_shading(static), "phase 21: the bench "
+           "scene's static asks for the shading census")
+
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           "sponza_pbr.json")) as f:
+        config = json.load(f)
+    gen = named.find("scenes", config["scene"]["generator"])
+    t0 = time.perf_counter()
+    data = gen.program_scene(config, 2)
+    t_assets = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.json")
+        with open(path, "w") as f:
+            json.dump(data, f)
+        scene = Scene()
+        t0 = time.perf_counter()
+        scene.load(path)
+        sa21, st21 = to_torch(*scene.compile(320, 180), "cuda")
+        t_load = time.perf_counter() - t0
+    cfg21 = scene.raytracing_config
+    _check(wavefront.counts_shading(st21), "phase 21: the PBR scene's "
+           "static does not ask for the shading census")
+    engine = EngineConfig(seed=21)
+    wavefront._RENDERER_CACHE.clear()
+    wavefront.reset_graph_stats()
+    frames, counts = {}, {}
+    for name in ("captured", "replayed", "eager"):
+        wavefront.reset_shading()
+        if name == "eager":
+            frames[name] = _eager(lambda: render(sa21, st21, cfg21, engine))
+        else:
+            frames[name] = render(sa21, st21, cfg21, engine)
+        counts[name] = census()
+    g = dict(wavefront.graph_stats)
+    for name in ("captured", "replayed"):
+        diff = _differ(frames[name], frames["eager"])
+        _check(not diff, f"phase 21: the {name} frame differs from the "
+               f"eager one in {diff}")
+    _check(counts["replayed"] == counts["eager"], f"phase 21: the shading "
+           f"census of the replayed frame {counts['replayed']} against the "
+           f"eager frame's {counts['eager']}")
+    c = counts["eager"]
+    _check(c["hits"] > 0 and c["cutout"] > 0 and c["fetches"] == 4 *
+           c["hits"], f"phase 21: census {c}")
+    _check(frames["eager"]["dropped_rays"] == 0, "phase 21: dropped rays")
+    print(f"phase 21: sponza_pbr at 320x180, 2 spp: assets {t_assets:.1f} "
+          f"s, load and compile {t_load:.1f} s ({st21.n_tris} triangles, "
+          f"{int(sa21.tex_texels.shape[0])} texels); captured, replayed and "
+          f"eager frames equal bit for bit in {', '.join(FRAME_KEYS)}; "
+          f"census replayed {counts['replayed']} = eager {counts['eager']} "
+          f"(captured frame {counts['captured']}, warm-up included): "
+          f"{c['fetches'] / c['hits']:.3f} fetches a hit, "
+          f"{100.0 * c['cutout'] / c['hits']:.3f}% cut-out; graphs {g}; "
+          f"device rays {frames['eager']['device_rays']}")
+    del sa21, st21, frames
+    wavefront._RENDERER_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 21 in {time.perf_counter() - start:.1f} s ({smi})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2088,6 +2183,9 @@ def main() -> int:
     u_row, f_row = rng_kernels(smi[0])
     rng_replay = rng_frames(smi[0], sa, static, cfg, engine, samples, out4)
 
+    # ---- phase 21: the glTF material model and the shading census ----
+    pbr_phase(smi[0], sa, static, cfg)
+
     def entry(name, source, replaces, launches, row):
         # no one PyTorch call computes any of the walks, and torch has no
         # call that makes a conditional graph node: library_ms null but for
@@ -2127,7 +2225,24 @@ def main() -> int:
     return 0
 
 
+def pbr_only() -> int:
+    """Phase 21 alone, on the 1280x720 bench scene and the PBR scene."""
+    sys.path.insert(0, ROOT)
+    from rustray_tpu_torch import to_torch
+    from rustray_tpu_torch.tools.capture_waves import load_bench_scene
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    scene = load_bench_scene(WIDTH, HEIGHT)
+    sa, static = to_torch(*scene.compile(), "cuda")
+    pbr_phase(smi, sa, static, scene.raytracing_config)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--replay-kernels"] and len(sys.argv) == 3:
         sys.exit(replay_kernels(sys.argv[2]))
+    if sys.argv[1:] == ["--pbr"]:
+        sys.exit(pbr_only())
     sys.exit(main())

@@ -26,8 +26,8 @@ device how often each gate's body ran (``runs``).  A replayed graph owes
 ``replays x unconditional + sum(site delta x runs[site])``, settled at the
 next :func:`fetch`, the one host copy of a group of replays.  Counts of
 what the device computes (the octet fallback's rays, the census's list
-entries) are device tensors that the program adds to in place
-(:func:`count_on_device`), so a replay adds to them itself.
+entries, the shading census) are device tensors that the program adds to
+in place (:func:`count_on_device`), so a replay adds to them itself.
 """
 from __future__ import annotations
 
@@ -320,11 +320,14 @@ def _counters():
 
 def _device_counts():
     """The counts that the sample program adds to on the device: the octet
-    fallback's rays and the block walks' census entries."""
+    fallback's rays, the block walks' census entries and the shading
+    census (render/wavefront.shading)."""
     from .ops import block_trace as bt
     from .ops import octet_trace as ot
-    return [(ot.fallback, "rays")] + [(c, "entries")
-                                      for c in bt.census.values()]
+    from .render import wavefront as wf
+    return ([(ot.fallback, "rays")]
+            + [(c, "entries") for c in bt.census.values()]
+            + [(wf.shading, k) for k in wf.shading])
 
 
 def count_on_device(d, k, n) -> None:

@@ -55,27 +55,65 @@ SHADOW_BIAS = shade_ops.SHADOW_BIAS
 PI = shade_ops.PI
 
 
-def _item_color(sa, static, mat_i, tex_type, uv, rgb):
-    """Material color times the texture (incl. alpha) when present."""
+# The shading census: live hits shaded (``hits``), the refraction children
+# spawned at hits whose alpha is below 1 (``cutout``: cut-out texels and
+# translucent materials) and those hits' texture fetches that found a
+# texture, summed over the channels (``fetches``), over every level.  Each
+# is a device tensor once counted, added to in place, so a captured graph
+# adds to it at every replay (graphs.count_on_device).  Counted only where
+# the scene has a texture channel beyond base colour (:func:`counts_shading`),
+# so a scene with base-colour textures alone launches nothing for it.
+shading = {"hits": 0, "cutout": 0, "fetches": 0}
+
+
+def counts_shading(static) -> bool:
+    """Whether the shading census counts this scene's levels: some material
+    has a texture in a channel beyond base colour (normal, roughness,
+    metallic, alpha, occlusion, emission or specular maps)."""
+    return any(static.tex_channels[int(TextureType.Base) + 1:])
+
+
+def reset_shading() -> None:
+    """Zero the shading census (its tensors in place)."""
+    for k in shading:
+        graphs.zero_count(shading, k)
+
+
+def _item_color(sa, static, mat_i, tex_type, uv, rgb, fetched=None):
+    """Material color times the texture (incl. alpha) when present; the
+    fetch's presence mask is appended to ``fetched`` when given."""
     if not static.tex_channels[int(tex_type)]:
         return rgb, torch.ones(rgb.shape[:-1], device=rgb.device)
     rgba, has = tex_ops.get_tex_color_rows(sa, mat_i, int(tex_type), uv,
                                            static)
+    if fetched is not None:
+        fetched.append(has)
     out = torch.where(has[..., None], rgb * rgba[..., :3], rgb)
     w = torch.where(has, rgba[..., 3], 1.0)
     return out, w
 
 
-def _tex_scalar(sa, static, mat_i, tex_type, uv):
+def _tex_scalar(sa, static, mat_i, tex_type, uv, fetched=None):
     """First texture channel + presence mask; (0, False) when no material
-    of the scene has the channel."""
+    of the scene has the channel.  The mask of a fetch is appended to
+    ``fetched`` when given."""
     if not static.tex_channels[int(tex_type)]:
         z = torch.zeros(mat_i.shape[:-1], device=mat_i.device)
         return z, torch.zeros(mat_i.shape[:-1], dtype=torch.bool,
                               device=mat_i.device)
     rgba, has = tex_ops.get_tex_color_rows(sa, mat_i, int(tex_type), uv,
                                            static)
+    if fetched is not None:
+        fetched.append(has)
     return rgba[..., 0], has
+
+
+def _count_shading(live, cutout, fetched) -> None:
+    """Add one level to the shading census: a few reductions and adds on
+    the device, no host sync."""
+    for k, mask in (("hits", live), ("cutout", cutout),
+                    ("fetches", torch.stack(fetched) & live)):
+        graphs.count_on_device(shading, k, mask.sum(dtype=torch.int64))
 
 
 def _shade_level(sa, static, prep, cfg: RaytracingConfig,
@@ -102,11 +140,14 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     live = alive & hit.hit
 
     surface_normal = attrs.normal
+    fetched = [] if counts_shading(static) else None
 
     # ---- normal mapping (src/raytracing.rs:756-784) ----
     if static.has_normal_tex:
         ntex, has_nt = tex_ops.get_tex_color_rows(
             sa, mat_i, int(TextureType.Normal), uv, static)
+        if fetched is not None:
+            fetched.append(has_nt)
         up = device_const((0.0, 1.0, 0.0), dev)
         fwd = device_const((0.0, 0.0, 1.0), dev)
         tangent = cross(surface_normal, up.expand_as(surface_normal))
@@ -131,7 +172,7 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     mc_flag = mat_i[:, MI_MONTE_CARLO] > 0
     if cfg.monte_carlo:
         rtex, has_rt = _tex_scalar(sa, static, mat_i, TextureType.Roughness,
-                                   uv)
+                                   uv, fetched)
         rough = torch.where(has_rt, (1.0 / np.pi / 2.0) * rtex,
                             mat_f[:, MF_ROUGHNESS])
         apply = mc_flag & ((mat_f[:, MF_ROUGHNESS] > 0.0) | has_rt)
@@ -143,14 +184,15 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     # ---- base / specular / ambient colors ----
     ambient_rgb, _ = _item_color(sa, static, mat_i,
                                  TextureType.AmbientEmissive, uv,
-                                 mat_f[:, MF_AMBIENT:MF_AMBIENT + 3])
+                                 mat_f[:, MF_AMBIENT:MF_AMBIENT + 3], fetched)
     base_rgb, base_w = _item_color(sa, static, mat_i, TextureType.Base, uv,
-                                   mat_f[:, MF_BASE:MF_BASE + 3])
+                                   mat_f[:, MF_BASE:MF_BASE + 3], fetched)
     spec_rgb, _ = _item_color(sa, static, mat_i, TextureType.Specular, uv,
-                              mat_f[:, MF_SPEC:MF_SPEC + 3])
+                              mat_f[:, MF_SPEC:MF_SPEC + 3], fetched)
 
     alpha = mat_f[:, MF_ALPHA] * base_w
-    atex, has_at = _tex_scalar(sa, static, mat_i, TextureType.Alpha, uv)
+    atex, has_at = _tex_scalar(sa, static, mat_i, TextureType.Alpha, uv,
+                               fetched)
     alpha = alpha * torch.where(has_at, atex, 1.0)
 
     # ---- lights (src/raytracing.rs:814-920) ----
@@ -229,7 +271,7 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     kr = shade_ops.fresnel(d, surface_normal, refr_index)
 
     refl_tex, has_reft = _tex_scalar(sa, static, mat_i,
-                                     TextureType.Reflectivity, uv)
+                                     TextureType.Reflectivity, uv, fetched)
     reflectivity = torch.where(has_reft, refl_tex, mat_f[:, MF_REFLECTIVITY])
 
     local = local * (1.0 - reflectivity[..., None])
@@ -253,7 +295,7 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     fog = torch.clamp(float(np.float32(cfg.fog_density)) * t_safe, max=1.0)
     fog_color = device_const(tuple(cfg.fog_color), dev)
     ao_tex, has_ao = _tex_scalar(sa, static, mat_i,
-                                 TextureType.AmbientOcclusion, uv)
+                                 TextureType.AmbientOcclusion, uv, fetched)
     ao = torch.where(has_ao, ao_tex, 1.0)
 
     emission = (ao[..., None]
@@ -266,6 +308,9 @@ def _shade_level(sa, static, prep, cfg: RaytracingConfig,
     w_refl_child = torch.where(spawn_refl, child_common * scale * reflectivity,
                                0.0)
     w_refr_child = torch.where(spawn_refr, child_common * w_refr, 0.0)
+
+    if fetched is not None:
+        _count_shading(live, spawn_refr & (w_refr_child > 0.0), fetched)
 
     # alpha≈0 id-override chain flag (approx_equal(alpha, 0) — trunc compare)
     alpha_zero = torch.trunc(torch.abs(alpha) * 1e6) == 0.0
